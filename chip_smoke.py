@@ -2,15 +2,23 @@
 
     python3 chip_smoke.py              # every phase, as the release check runs it
     python3 chip_smoke.py --phases build,kernel
+    python3 chip_smoke.py --phases device,build,kernel,train
     python3 chip_smoke.py --phases build,breakdown   # where the time goes
 
 Phases, each printing one JSON object per line:
   device  card name and power limit (torch + nvidia-smi);
-  build   the hand-written CUDA kernels, compiled from csrc/ with nvcc;
+  build   the hand-written CUDA kernels, compiled from csrc/ with nvcc,
+          one nvcc per source, all started together;
   kernel  each kernel against its plain PyTorch version on the card, with
           stated tolerances, and timed beside its bound, its plain
           version and the PyTorch library call that computes the same
           function;
+  train   the launchable trainer (train.run.main) at llama-1b full width
+          and depth, batch 4 x seq 8192, remat 'dots', 3 steps on one
+          fixed batch with checkpoints; kernel launch counts per step; a
+          resume from the step-2 checkpoint; one 'full'-remat step; a
+          full-width gate of loss and grads through the kernels against
+          the reference attention; the step's device time by kernel;
   serve   the generation-server replica at llama3-8b full width (random
           weights from a seed, bf16, paged KV, speculative decode) behind
           its HTTP surface: greedy /generate requests, a prefix-cache hit,
@@ -25,6 +33,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -34,25 +43,30 @@ import traceback
 import urllib.error
 import urllib.request
 
-ALL_PHASES = ('device', 'build', 'kernel', 'serve')
+ALL_PHASES = ('device', 'build', 'kernel', 'train', 'serve')
 # Run only when named in --phases: a per-dispatch time breakdown.
 EXTRA_PHASES = ('breakdown',)
-
-# Dense bf16 tensor-core peak (FLOP/s) and HBM bandwidth (B/s) by card,
-# from NVIDIA's data sheets; matched against the nvidia-smi name.
-PEAKS = (
-    ('H100 PCIe', 756e12, 2.0e12),
-    ('H100 NVL', 835e12, 3.9e12),
-    ('H200', 989e12, 4.8e12),
-    ('H100', 989e12, 3.35e12),
-)
+KERNELS = ('flash_fwd', 'flash_bwd')
 
 # Llama-3-8B attention widths.
 HQ, HKV, HEAD_DIM = 32, 8, 128
 OUT_TOL = 2e-2   # bf16 output vs the f32 plain version cast to bf16
 LSE_TOL = 1e-3   # f32 row reductions taken in another order
+# K2: each of dq, dk, dv within this fraction of the plain version's max
+# |value| (bf16 outputs; P and dS rounded to bf16 in both, from S and dP
+# summed in another order).
+GRAD_TOL = 2e-2
 LOGIT_RTOL = 5e-2  # kernel-path prefill logits vs reference attention
 L2_SETS = 4  # input copies timed in turn: 4 x 31 MB at 1536 exceeds L2
+# The trainer as the train phase drives it: llama-1b (16/8 heads, d 128),
+# batch 4 x seq 8192 (the example's batch of 8 was global over 8 TPU
+# chips; 8 does not fit one 80 GB card at remat 'dots'), 3 steps.
+TRAIN_HQ, TRAIN_HKV, TRAIN_B, TRAIN_SEQ = 16, 8, 4, 8192
+TRAIN_ARGV = ['--preset', 'llama-1b', '--batch', str(TRAIN_B), '--seq',
+              str(TRAIN_SEQ), '--device', 'cuda', '--log-every', '1']
+GATE_SEQ = 2048  # full-width gate: batch 1 x 2048 tokens
+GATE_LOSS_RTOL = 1e-2  # loss through the kernels vs reference attention
+GATE_GRAD_RTOL = 5e-2  # each leaf's grad, relative L2
 # The replica as the serve phase starts it: llama3-8b, bf16 weights from
 # seed 0, paged KV (64-row blocks), speculative decode K 4, 2 steps in
 # flight (the SKYTPU_* defaults).
@@ -70,13 +84,6 @@ def nvidia_smi_line() -> str:
          '--format=csv,noheader'],
         capture_output=True, text=True, check=True, timeout=60)
     return proc.stdout.strip().splitlines()[0]
-
-
-def card_peaks(name: str):
-    for key, flops, bw in PEAKS:
-        if key in name:
-            return flops, bw
-    raise RuntimeError(f'no peak rates known for card {name!r}')
 
 
 def time_cuda(fn, iters: int, warmup: int = 3) -> float:
@@ -101,26 +108,59 @@ def visible_pairs(sq: int, sk: int, causal: bool) -> int:
     return sum(min(sk, q_start + i + 1) for i in range(sq))
 
 
-def flash_bound_ms(sq: int, sk: int, causal: bool, peak_flops: float,
-                   peak_bw: float):
-    flops = 4.0 * HQ * HEAD_DIM * visible_pairs(sq, sk, causal)
-    nbytes = 2.0 * HEAD_DIM * (2 * sq * HQ + 2 * sk * HKV) + 4.0 * HQ * sq
-    t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
+def _bound(flops: float, nbytes: float, ctx):
+    t_ops, t_bytes = flops / ctx['peak_flops'], nbytes / ctx['peak_bw']
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes')
 
 
+def flash_bound_ms(b: int, sq: int, sk: int, hq: int, hkv: int, d: int,
+                   causal: bool, ctx):
+    """K1: 4*hq*d FLOPs per visible pair (two products); q, k, v read
+    and out written in bf16, lse written in f32."""
+    flops = 4.0 * b * hq * d * visible_pairs(sq, sk, causal)
+    nbytes = b * (2.0 * d * (2 * sq * hq + 2 * sk * hkv) + 4.0 * hq * sq)
+    return _bound(flops, nbytes, ctx)
+
+
+def flash_bwd_bound_ms(b: int, sq: int, sk: int, hq: int, hkv: int, d: int,
+                       causal: bool, ctx):
+    """K2: 10*hq*d FLOPs per visible pair (five products); q, k, v, out,
+    dO and lse read, dq, dk, dv written."""
+    flops = 10.0 * b * hq * d * visible_pairs(sq, sk, causal)
+    nbytes = b * (2.0 * d * (4 * sq * hq + 4 * sk * hkv) + 4.0 * hq * sq)
+    return _bound(flops, nbytes, ctx)
+
+
 # ---------------------------------------------------------------------------
 def phase_build(ctx) -> None:
+    """One nvcc per kernel source, all started together."""
     from skypilot_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.load('flash_fwd')
-    info = _build.build_info['flash_fwd']
-    ptxas = [ln.strip() for ln in str(info['log']).splitlines()
-             if 'registers' in ln or 'spill' in ln]
-    emit({'phase': 'build', 'kernel': 'flash_fwd',
-          'nvcc_s': round(float(info['seconds']), 3),
-          'load_s': round(time.perf_counter() - t0, 3), 'ptxas': ptxas})
+    errors = {}
+
+    def build(name):
+        try:
+            _build.load(name)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors[name] = e
+
+    threads = [threading.Thread(target=build, args=(name,))
+               for name in KERNELS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError(f'kernel build failed: {errors}')
+    for name in KERNELS:
+        info = _build.build_info[name]
+        ptxas = [ln.strip() for ln in str(info['log']).splitlines()
+                 if 'registers' in ln or 'spill' in ln
+                 or 'Compiling entry' in ln]
+        emit({'phase': 'build', 'kernel': name,
+              'nvcc_s': round(float(info['seconds']), 3),
+              'wall_s': round(time.perf_counter() - t0, 3), 'ptxas': ptxas})
 
 
 def phase_kernel(ctx) -> None:
@@ -164,41 +204,358 @@ def phase_kernel(ctx) -> None:
             rec.update(time_flash(ctx, q, k, v, scale))
         emit(rec)
     ctx['flash'] = {'max_abs_err': worst}
+    # K1 at the train phase's shape (llama-1b heads, batch 4 x 8192).
+    q, k, v = _qkv(gen, TRAIN_B, TRAIN_SEQ, TRAIN_SEQ, TRAIN_HQ, TRAIN_HKV,
+                   HEAD_DIM)
+    emit({'phase': 'kernel', 'kernel': 'flash_fwd', 'b': TRAIN_B,
+          'sq': TRAIN_SEQ, 'sk': TRAIN_SEQ, 'hq': TRAIN_HQ,
+          'hkv': TRAIN_HKV, 'head_dim': HEAD_DIM, 'causal': True,
+          **time_flash(ctx, q, k, v, HEAD_DIM ** -0.5, sets=2,
+                       plain=False)})
+    del q, k, v
+    check_flash_bwd(ctx, gen)
 
 
-def time_flash(ctx, q, k, v, scale):
+def _qkv(gen, b, sq, sk, hq, hkv, d):
+    import torch
+    dev = torch.device('cuda')
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen,
+                           dtype=torch.float32).to(torch.bfloat16)
+    return rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
+
+
+def _bwd_by_kv_head(q, k, v, out, lse, dout, causal, scale):
+    """The plain K2 version, one KV head's query group at a time (the
+    same function; the heads are independent), so that its f32 score
+    tensors fit beside the kernel's inputs at long sequences."""
+    import torch
+    from skypilot_tpu_torch.ops import attention as attn
+    hkv = k.shape[2]
+    grp = q.shape[2] // hkv
+    parts = []
+    for h in range(hkv):
+        qs = slice(h * grp, (h + 1) * grp)
+        parts.append(attn.flash_attention_bwd_reference(
+            q[:, :, qs], k[:, :, h:h + 1], v[:, :, h:h + 1], out[:, :, qs],
+            lse[:, qs].contiguous(), dout[:, :, qs], causal, scale))
+    return tuple(torch.cat([p[i] for p in parts], dim=2) for i in range(3))
+
+
+def check_flash_bwd(ctx, gen) -> None:
+    """K2 against its plain version on the card: llama-1b (16/8) and
+    llama3-8b (32/8) heads at d 128 and one d 64 case; out and lse come
+    from K1 on the same inputs. Then timed at the train shape."""
+    import torch
+    from skypilot_tpu_torch.ops import attention as attn
+    cases = [  # (sq, sk, causal, head_dim)
+        (128, 128, True, HEAD_DIM), (1000, 1000, True, HEAD_DIM),
+        (2048, 2048, True, HEAD_DIM), (8192, 8192, True, HEAD_DIM),
+        (256, 1024, True, HEAD_DIM), (300, 777, False, HEAD_DIM)]
+    runs = [(hq, hkv, c) for hq, hkv in ((TRAIN_HQ, TRAIN_HKV), (HQ, HKV))
+            for c in cases] + [(TRAIN_HQ, TRAIN_HKV, (200, 333, True, 64))]
+    worst = 0.0
+    for hq, hkv, (sq, sk, causal, d) in runs:
+        q, k, v = _qkv(gen, 1, sq, sk, hq, hkv, d)
+        dout = _qkv(gen, 1, sq, sq, hq, hkv, d)[0]
+        scale = d ** -0.5
+        out, lse = attn.flash_attention_fwd(q, k, v, causal, scale)
+        got = attn.flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                       scale)
+        torch.cuda.synchronize()
+        want = _bwd_by_kv_head(q, k, v, out, lse, dout, causal, scale)
+        rec = {'phase': 'kernel', 'kernel': 'flash_bwd', 'sq': sq, 'sk': sk,
+               'causal': causal, 'head_dim': d, 'hq': hq, 'hkv': hkv,
+               'tol': GRAD_TOL, 'ok': True}
+        for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            ref_max = w.float().abs().max().item()
+            rec[f'{name}_max_abs_err'] = err
+            rec[f'{name}_ref_max_abs'] = ref_max
+            finite = bool(torch.isfinite(g.float()).all())
+            if not (finite and err <= GRAD_TOL * ref_max):
+                rec['ok'] = False
+            worst = max(worst, err)
+        emit(rec)
+        if not rec['ok']:
+            raise RuntimeError(f'flash_bwd disagrees with its plain version '
+                               f'at {rec}')
+        del q, k, v, dout, out, lse, got, want
+    ctx['flash_bwd'] = {'max_abs_err': worst}
+    timing = time_flash_bwd(ctx)
+    ctx['flash_bwd_timing'] = timing
+    emit({'phase': 'kernel', 'kernel': 'flash_bwd', 'b': TRAIN_B,
+          'sq': TRAIN_SEQ, 'sk': TRAIN_SEQ, 'hq': TRAIN_HQ,
+          'hkv': TRAIN_HKV, 'head_dim': HEAD_DIM, 'causal': True, **timing})
+
+
+def time_flash_bwd(ctx):
+    """K2 / plain / library at the train shape (b 4, 8192, 16/8 heads,
+    causal), inputs rotating over two copies (each more bytes than L2).
+    The library call is PyTorch's flash-attention backward
+    (aten._scaled_dot_product_flash_attention_backward) on KV repeated to
+    16 heads, as it takes no GQA: it returns per-query-head dK/dV, which
+    K2 sums over the group."""
+    import torch
+    from skypilot_tpu_torch.ops import attention as attn
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(99)
+    b, s, hq, hkv, d = TRAIN_B, TRAIN_SEQ, TRAIN_HQ, TRAIN_HKV, HEAD_DIM
+    scale = d ** -0.5
+    sets = []
+    for _ in range(2):
+        q, k, v = _qkv(gen, b, s, s, hq, hkv, d)
+        dout = _qkv(gen, b, s, s, hq, hkv, d)[0]
+        out, lse = attn.flash_attention_fwd(q, k, v, True, scale)
+        sets.append((q, k, v, out, lse, dout))
+    turn = itertools.count()
+
+    def kernel():
+        attn.flash_attention_bwd(*sets[next(turn) % 2], True, scale)
+
+    kernel_ms = time_cuda(kernel, iters=10)
+    plain_ms = time_cuda(lambda: _bwd_by_kv_head(*sets[0], True, scale),
+                         iters=2, warmup=1)
+    lib_sets = []
+    for q, k, v, _, _, dout in sets:
+        qt, dot = q.transpose(1, 2), dout.transpose(1, 2)
+        kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+        lib_sets.append((dot, qt, kt, vt))
+    library_call = 'aten._scaled_dot_product_flash_attention_backward'
+    try:
+        for i, (dot, qt, kt, vt) in enumerate(lib_sets):
+            fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, True, False, scale=scale)
+            lib_sets[i] = (dot, qt, kt, vt, fwd[:8])
+
+        def library():
+            dot, qt, kt, vt, fwd = lib_sets[next(turn) % 2]
+            out, lse, cq, ck, mq, mk, seed, offset = fwd
+            torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed,
+                offset, scale=scale)
+
+        library_ms = time_cuda(library, iters=10)
+    except (RuntimeError, TypeError) as e:
+        # This torch has no such op signature: SDPA forward + backward
+        # minus SDPA forward, on the same inputs.
+        import torch.nn.functional as F
+        library_call = f'sdpa fwd+bwd - fwd ({type(e).__name__})'
+        grads = [(t[1].detach().requires_grad_(), t[2].detach()
+                  .requires_grad_(), t[3].detach().requires_grad_(), t[0])
+                 for t in lib_sets]
+
+        def fwd_only():
+            qt, kt, vt, _ = grads[next(turn) % 2]
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               scale=scale)
+
+        def fwd_bwd():
+            qt, kt, vt, dot = grads[next(turn) % 2]
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 scale=scale)
+            torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        library_ms = (time_cuda(fwd_bwd, iters=10)
+                      - time_cuda(fwd_only, iters=10))
+    bound_ms, bound_by = flash_bwd_bound_ms(b, s, s, hq, hkv, d, True, ctx)
+    return {'kernel_ms': kernel_ms, 'plain_ms': plain_ms,
+            'library_ms': library_ms, 'library_call': library_call,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'card': ctx['smi']}
+
+
+def time_flash(ctx, q, k, v, scale, sets=L2_SETS, plain=True):
     """kernel / plain / SDPA times at one causal sq == sk shape. The
-    kernel and SDPA take their turns over L2_SETS copies of the inputs,
+    kernel and SDPA take their turns over ``sets`` copies of the inputs,
     more bytes than the 50 MB L2 holds, so each call finds its q/k/v in
     HBM as a prefill does (they come fresh from the projections)."""
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops import attention as attn
-    sq, sk = q.shape[1], k.shape[1]
-    sets = [(q, k, v)] + [(q.clone(), k.clone(), v.clone())
-                          for _ in range(L2_SETS - 1)]
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    copies = [(q, k, v)] + [(q.clone(), k.clone(), v.clone())
+                            for _ in range(sets - 1)]
     turn = itertools.count()
 
     def kernel():
-        qi, ki, vi = sets[next(turn) % L2_SETS]
+        qi, ki, vi = copies[next(turn) % sets]
         attn.flash_attention_fwd(qi, ki, vi, True, scale)
 
     def sdpa():
-        qi, ki, vi = (t.transpose(1, 2) for t in sets[next(turn) % L2_SETS])
+        qi, ki, vi = (t.transpose(1, 2) for t in copies[next(turn) % sets])
         F.scaled_dot_product_attention(qi, ki, vi, is_causal=True,
                                        scale=scale, enable_gqa=True)
 
-    kernel_ms = time_cuda(kernel, iters=48)
-    plain_ms = time_cuda(
+    kernel_ms = time_cuda(kernel, iters=48 if sq <= 2048 else 10)
+    plain_ms = (time_cuda(
         lambda: attn.flash_attention_fwd_reference(q, k, v, True, scale),
-        iters=5, warmup=1)
-    library_ms = time_cuda(sdpa, iters=48)
-    bound_ms, bound_by = flash_bound_ms(sq, sk, True, ctx['peak_flops'],
-                                        ctx['peak_bw'])
+        iters=5, warmup=1) if plain else None)
+    library_ms = time_cuda(sdpa, iters=48 if sq <= 2048 else 10)
+    bound_ms, bound_by = flash_bound_ms(b, sq, sk, hq, hkv, d, True, ctx)
     timing = {'kernel_ms': kernel_ms, 'plain_ms': plain_ms,
               'library_ms': library_ms, 'bound_ms': bound_ms,
               'bound_by': bound_by, 'card': ctx['smi']}
-    ctx.setdefault('flash_timing', {})[sq] = timing
+    ctx.setdefault('flash_timing', {})[(b, sq, hq)] = timing
     return timing
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp(min=1e-30)).item()
+
+
+def phase_train(ctx) -> None:
+    """llama-1b at full width and depth through ``train.run.main``."""
+    import shutil
+    import tempfile
+    import torch
+    from skypilot_tpu_torch.models.llama import PRESETS
+    from skypilot_tpu_torch.ops import attention as attn
+    from skypilot_tpu_torch.train import run
+    from skypilot_tpu_torch.train.step import (cross_entropy_loss, get_leaf,
+                                               leaf_names)
+    cfg = PRESETS['llama-1b']
+    layers = cfg.num_layers
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(7)
+    fixed = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_SEQ),
+                          device='cuda', generator=gen)
+    batch = {'tokens': fixed, 'targets': torch.roll(fixed, -1, dims=1)}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_train_')
+    ckpt = os.path.join(tmp, 'ckpt')
+    dots = TRAIN_ARGV + ['--remat', 'dots', '--steps', '3', '--ckpt-dir',
+                         ckpt, '--save-every', '1']
+    try:
+        # 3 steps, 'dots', checkpoint after each: the main path's run.
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        attn.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run.main(dots, batch_fn=lambda step: fixed)
+        run_s = time.perf_counter() - t0
+        launches = dict(attn.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log = res['log']
+        losses = [r['loss'] for r in log]
+        if len(losses) != 3 or not all(map(math.isfinite, losses)) \
+                or not losses[2] < losses[0]:
+            raise RuntimeError(f'train losses not finite and falling: '
+                               f'{losses}')
+        want = {'flash_fwd': 3 * layers, 'flash_bwd': 3 * layers}
+        if launches != want:
+            raise RuntimeError(f'3 dots steps launched {launches}, want '
+                               f'{want}')
+        ctx['train_launches'] = launches
+        # One more step, synced, for the step time without checkpoint
+        # copies; then one under torch.profiler for where it goes.
+        trainer, state = res['trainer'], res['state']
+        step = trainer.step_fn()
+        _, step_ms = _wall_ms(lambda: step(state, batch), 1)
+        prof = _profile_calls(lambda: step(state, batch), 1, top=12)
+        del res, trainer, state, step
+        tokens = TRAIN_B * TRAIN_SEQ
+        flops = cfg.train_flops_per_token(TRAIN_SEQ) * tokens
+        emit({'phase': 'train', 'preset': 'llama-1b',
+              'params': cfg.num_params, 'layers': layers,
+              'batch': TRAIN_B, 'seq': TRAIN_SEQ, 'remat': 'dots',
+              'losses': losses,
+              'grad_norms': [r['grad_norm'] for r in log],
+              'logged_step_s': [r['seconds'] for r in log],
+              'run_s': run_s, 'step_ms': step_ms,
+              'tokens_per_s': tokens / step_ms * 1e3,
+              'tflops': flops / step_ms / 1e9,
+              'mfu': flops / step_ms / 1e-3 / ctx['peak_flops'],
+              'peak_mem_gb': peak_gb, 'launches': launches,
+              'launches_per_step': {k: v // 3 for k, v in launches.items()},
+              'device_busy_ms': prof['busy_ms'],
+              'port_kernels_ms': prof['port_kernels_ms'],
+              'device_kernels': prof['kernels'], 'top_ops': prof['top_ops'],
+              'card': ctx['smi']})
+
+        # Resume from the step-2 checkpoint: step 3's loss again, bitwise.
+        shutil.rmtree(os.path.join(ckpt, '3'))
+        torch.cuda.empty_cache()
+        attn.reset_launch_counts()
+        res = run.main(dots, batch_fn=lambda step: fixed)
+        again = res['log'][0]
+        resumed = {'phase': 'train', 'check': 'resume',
+                   'start_step': res['start_step'], 'step': again['step'],
+                   'loss': again['loss'], 'want': losses[2],
+                   'launches': dict(attn.LAUNCHES)}
+        emit(resumed)
+        del res
+        if (resumed['start_step'] != 2 or again['step'] != 3
+                or again['loss'] != losses[2]):
+            raise RuntimeError(f'resume did not reproduce step 3: '
+                               f'{resumed}')
+        if resumed['launches'] != {'flash_fwd': layers, 'flash_bwd': layers}:
+            raise RuntimeError(f'resumed step launched {resumed}')
+
+        # One 'full' step: K1 runs again inside the backward.
+        torch.cuda.empty_cache()
+        attn.reset_launch_counts()
+        res = run.main(TRAIN_ARGV + ['--remat', 'full', '--steps', '1'],
+                       batch_fn=lambda step: fixed)
+        full = dict(attn.LAUNCHES)
+        emit({'phase': 'train', 'check': 'remat_full',
+              'loss': res['log'][0]['loss'], 'launches': full})
+        if full != {'flash_fwd': 2 * layers, 'flash_bwd': layers}:
+            raise RuntimeError(f'a full-remat step launched {full}')
+
+        # Full-width gate: loss and grads through K1/K2 against the
+        # reference attention, batch 1 x 2048, the trained weights.
+        model, params = res['trainer'].model, res['state'].params
+        names = leaf_names(params)
+        leaves = [get_leaf(params, n) for n in names]
+        tokens = fixed[:1, :GATE_SEQ]
+        out = {}
+        for impl in (None, 'reference'):
+            logits, _ = model.apply_with_aux(params, tokens, force_impl=impl)
+            loss = cross_entropy_loss(logits, torch.roll(tokens, -1, 1))
+            out[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+            del logits, loss
+        loss_rel = abs(out[None][0] - out['reference'][0]) / abs(
+            out['reference'][0])
+        grad_rel = {n: _rel_l2(g, w) for n, g, w in
+                    zip(names, out[None][1], out['reference'][1])}
+        ok = (loss_rel <= GATE_LOSS_RTOL
+              and max(grad_rel.values()) <= GATE_GRAD_RTOL)
+        emit({'phase': 'train', 'check': 'gate', 'tokens': GATE_SEQ,
+              'loss_kernel': out[None][0], 'loss_reference':
+              out['reference'][0], 'loss_rel_err': loss_rel,
+              'loss_rtol': GATE_LOSS_RTOL, 'grad_rel_l2': grad_rel,
+              'grad_rtol': GATE_GRAD_RTOL, 'ok': ok})
+        del res, model, params, leaves, out
+        if not ok:
+            raise RuntimeError('kernel-path loss/grads off the reference')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit(lm_head_cost(ctx, cfg))
+
+
+def lm_head_cost(ctx, cfg):
+    """The three lm-head GEMMs of a train step at batch 4 x 8192 (logits,
+    dx, dW), in f32 as the port runs them and in bf16 for comparison."""
+    import torch
+    rows, e, vocab = TRAIN_B * TRAIN_SEQ, cfg.embed_dim, cfg.vocab_size
+    rec = {'phase': 'train', 'check': 'lm_head', 'rows': rows, 'embed': e,
+           'vocab': vocab, 'flops': 3 * 2.0 * rows * e * vocab}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(rows, e, device='cuda').to(dtype)
+        w = torch.randn(e, vocab, device='cuda').to(dtype)
+        g = torch.randn(rows, vocab, device='cuda').to(dtype)
+        ms = (time_cuda(lambda: x @ w, iters=3, warmup=1)
+              + time_cuda(lambda: g @ w.T, iters=3, warmup=1)
+              + time_cuda(lambda: x.T @ g, iters=3, warmup=1))
+        rec[f'{str(dtype).split(".")[1]}_ms'] = ms
+        del x, w, g
+        torch.cuda.empty_cache()
+    rec['card'] = ctx['smi']
+    return rec
 
 
 def _post(base, body, timeout=600):
@@ -395,10 +752,11 @@ def _profile_calls(fn, reps: int, top: int = 10):
             on_device = str(getattr(e, 'device_type', '')).endswith('CUDA')
             (kernels if on_device else ops).append(e)
     ops.sort(key=_device_us, reverse=True)
-    # The port's own kernels launch through ctypes, under no aten op.
+    # The port's own kernels launch through ctypes, under no aten op
+    # (K2 is three kernels: flash_bwd_{delta,dkdv,dq}_kernel).
     from skypilot_tpu_torch.ops import attention as attn
     own = {name: sum(_device_us(e) for e in kernels
-                     if f'{name}_kernel' in e.key) / reps / 1e3
+                     if name in e.key) / reps / 1e3
            for name in attn.LAUNCHES}
     return {
         'busy_ms': sum(_device_us(e) for e in kernels) / reps / 1e3,
@@ -479,16 +837,30 @@ def phase_breakdown(ctx) -> None:
 
 
 def kernels_line(ctx):
-    timing = ctx['flash_timing'][1536]  # the main path's largest prefill
+    """K1 timed at the serve path's largest prefill (1536, llama3-8b
+    heads), K2 at the train shape; launches summed over the serve and
+    train runs."""
+    fwd = ctx['flash_timing'][(1, 1536, HQ)]
+    bwd = ctx['flash_bwd_timing']
+    train = ctx['train_launches']
     return [{
         'name': 'flash_fwd', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
         'replaces': 'skypilot_tpu/ops/attention.py:121',
-        'launches': ctx['flash_launches'],
+        'launches': ctx['flash_launches'] + train['flash_fwd'],
         'max_abs_err': ctx['flash']['max_abs_err'],
-        'ms': timing['kernel_ms'], 'plain_ms': timing['plain_ms'],
-        'bound_ms': timing['bound_ms'], 'bound_by': timing['bound_by'],
-        'library_ms': timing['library_ms'],
+        'ms': fwd['kernel_ms'], 'plain_ms': fwd['plain_ms'],
+        'bound_ms': fwd['bound_ms'], 'bound_by': fwd['bound_by'],
+        'library_ms': fwd['library_ms'],
+    }, {
+        'name': 'flash_bwd', 'route': 'cuda',
+        'source': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
+        'replaces': 'skypilot_tpu/ops/attention.py:171',
+        'launches': train['flash_bwd'],
+        'max_abs_err': ctx['flash_bwd']['max_abs_err'],
+        'ms': bwd['kernel_ms'], 'plain_ms': bwd['plain_ms'],
+        'bound_ms': bwd['bound_ms'], 'bound_by': bwd['bound_by'],
+        'library_ms': bwd['library_ms'],
     }]
 
 
@@ -513,17 +885,22 @@ def main() -> int:
     ctx = {'name': torch.cuda.get_device_name(0),
            'count': torch.cuda.device_count()}
     ctx['smi'] = nvidia_smi_line()
-    ctx['peak_flops'], ctx['peak_bw'] = card_peaks(ctx['smi'])
+    from skypilot_tpu_torch import accelerators
+    ctx['peak_flops'], ctx['peak_bw'] = accelerators.card_peaks(ctx['smi'])
     emit({'phase': 'device', 'name': ctx['name'], 'count': ctx['count'],
           'nvidia_smi': ctx['smi'], 'torch': torch.__version__,
           'cuda': torch.version.cuda})
     runners = {'build': phase_build, 'kernel': phase_kernel,
-               'serve': phase_serve, 'breakdown': phase_breakdown}
+               'train': phase_train, 'serve': phase_serve,
+               'breakdown': phase_breakdown}
     for phase in phases:
         if phase == 'device':
             continue
+        t0 = time.perf_counter()
         runners[phase](ctx)
-    if 'serve' in phases and 'kernel' in phases:
+        torch.cuda.empty_cache()
+        emit({'phase': phase, 'seconds': time.perf_counter() - t0})
+    if {'kernel', 'train', 'serve'} <= set(phases):
         emit({'kernels': kernels_line(ctx)})
     print(ctx['smi'], flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': ctx['name'],

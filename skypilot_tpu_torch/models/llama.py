@@ -9,17 +9,21 @@ thing. Methods take the parameter tree as an explicit dict, as the JAX
 functions do; ``params()`` returns the module's own.
 
 GQA, RoPE, SwiGLU, RMSNorm; bf16 weights and activations, f32 norms,
-softmax and logits. Serving only: the training path (remat, sharding,
-pipeline stages) is not part of this package yet.
+softmax and logits. ``apply`` is the no-grad forward that serving uses;
+``apply_with_aux`` is the differentiable one that training uses, with the
+configured rematerialisation policy around each layer. Sharding and
+pipeline stages are not part of this package yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops.layers import (apply_rotary, precompute_rotary,
@@ -46,6 +50,15 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     tie_embeddings: bool = False
+    remat: bool = True
+    # Rematerialisation policy of each layer in training: 'full' recomputes
+    # the whole layer in the backward; 'dots' keeps the outputs of the
+    # matmuls with no batch dims and the flash forward's out and lse.
+    # 'names', 'names_qkv' and 'names_offload' are not ported yet.
+    remat_policy: str = 'full'
+    # Pipeline microbatches when the mesh has pp > 1 (multi-device is not
+    # ported; kept so configs carry over field by field).
+    pp_microbatches: Optional[int] = None
 
     @property
     def num_params(self) -> int:
@@ -57,12 +70,29 @@ class LlamaConfig:
         head = 0 if self.tie_embeddings else e * v
         return v * e + l * per_layer + e + head
 
+    @property
+    def flops_params(self) -> int:
+        """Param count for FLOPs accounting (an MoE config would count the
+        per-token active parameters)."""
+        return self.num_params
+
+    def train_flops_per_token(self, seq_len: int,
+                              causal: bool = True) -> float:
+        """Training matmul FLOPs per token: 6N plus the attention term
+        12·L·H·D·T (QK^T and PV, forward and backward), halved when
+        causal because the flash kernels skip masked tiles."""
+        attn = 12 * self.num_layers * self.num_heads * self.head_dim \
+            * seq_len
+        if causal:
+            attn //= 2
+        return 6 * self.flops_params + attn
+
 
 PRESETS: Dict[str, LlamaConfig] = {
     'test-tiny': LlamaConfig(vocab_size=256, embed_dim=64, num_layers=2,
                              num_heads=4, num_kv_heads=2, head_dim=16,
                              mlp_dim=128, max_seq_len=512,
-                             dtype=torch.float32),
+                             dtype=torch.float32, remat=False),
     'llama-1b': LlamaConfig(vocab_size=32000, embed_dim=2048, num_layers=16,
                             num_heads=16, num_kv_heads=8, head_dim=128,
                             mlp_dim=5632, max_seq_len=8192,
@@ -104,6 +134,8 @@ def param_shapes(config: LlamaConfig) -> Params:
 
 
 def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):  # e.g. a checkpoint's CPU tensors
+        return arr
     arr = np.asarray(arr)
     if arr.dtype.name == 'bfloat16':  # ml_dtypes bf16 from JAX
         return torch.from_numpy(arr.view(np.uint16).copy()).view(
@@ -268,6 +300,45 @@ class LlamaModel(nn.Module):
         # bf16 operands, f32 products and sums: f32-accurate logits.
         return x.float() @ self._head(params).float()
 
+    @property
+    def aux_loss_weight(self) -> float:
+        return 0.0
+
+    def apply_with_aux(self, params: Params, tokens: torch.Tensor,
+                       positions: Optional[torch.Tensor] = None,
+                       force_impl: Optional[str] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Differentiable forward -> (logits [B, S, V] f32, aux loss).
+
+        aux is 0 for this dense model (the Trainer adds
+        ``aux_loss_weight * aux``). Each stacked ``[L, ...]`` parameter is
+        split with one ``unbind`` per call, whose backward is one
+        ``stack``, so no layer allocates a full-size zero gradient."""
+        c = self.config
+        dev = tokens.device
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=dev)
+        cos, sin = precompute_rotary(c.head_dim, c.max_seq_len,
+                                     c.rope_theta, device=dev)
+
+        def layer(x, *values):
+            lp = dict(zip(LAYER_PARAMS, values))
+            q, k, v = self._qkv(lp, x, cos, sin, positions)
+            attn = attention_ops.attention(q, k, v, causal=True,
+                                           force_impl=force_impl)
+            x = x + self._attn_out(lp, attn)
+            return x + self._mlp_delta(lp, x)
+
+        layer = _maybe_remat(layer, c)
+        stacked = [params['layers'][name].unbind(0) for name in LAYER_PARAMS]
+        x = params['embed'][tokens].to(c.dtype)
+        for i in range(c.num_layers):
+            x = layer(x, *(values[i] for values in stacked))
+        x = rms_norm(x, params['final_norm'], c.norm_eps)
+        # f32 operands: f32-accurate logits, as ``apply``.
+        logits = x.float() @ self._head(params).float()
+        return logits, torch.zeros((), dtype=torch.float32, device=dev)
+
     # -- decode oracle -------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Params:
         c = self.config
@@ -313,3 +384,44 @@ class LlamaModel(nn.Module):
         logits = x[:, -1].float() @ self._head(params).float()
         return logits, {'k': torch.stack(new_k), 'v': torch.stack(new_v),
                         'length': start + t}
+
+
+# -- rematerialisation --------------------------------------------------------
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep what JAX's 'dots' policy keeps: outputs of matmuls with no
+    batch dims (aten.mm; a [b, s, e] @ [e, n] product lowers to one) and
+    the flash forward's out and lse; recompute everything else."""
+    del ctx, args, kwargs
+    if op in (torch.ops.aten.mm.default,
+              torch.ops.skytpu.flash_fwd.default):
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return torch_checkpoint.create_selective_checkpoint_contexts(
+        _dots_policy)
+
+
+def _maybe_remat(layer_fn: Callable, config: LlamaConfig) -> Callable:
+    """Wrap one layer's function in the configured rematerialisation
+    policy (the counterpart of ``skypilot_tpu/models/llama.py``
+    ``_maybe_remat``)."""
+    if not config.remat:
+        return layer_fn
+    policy = config.remat_policy
+    if policy == 'full':
+        return functools.partial(torch_checkpoint.checkpoint, layer_fn,
+                                 use_reentrant=False)
+    if policy == 'dots':
+        return functools.partial(torch_checkpoint.checkpoint, layer_fn,
+                                 use_reentrant=False,
+                                 context_fn=_dots_context)
+    if policy in ('names', 'names_qkv', 'names_offload'):
+        raise NotImplementedError(
+            f'remat_policy {policy!r} is not yet ported to the PyTorch '
+            f'trainer (ROADMAP.md queue 1)')
+    raise ValueError(
+        f'unknown remat_policy {policy!r}; expected one of \'full\', '
+        "'dots', 'names', 'names_qkv', 'names_offload'")

@@ -1,16 +1,22 @@
-"""Attention: reference, blockwise (memory-efficient), CUDA flash forward.
+"""Attention: reference, blockwise (memory-efficient), CUDA flash.
 
 Counterpart of ``skypilot_tpu/ops/attention.py``. Layouts are
 [batch, seq, heads, head_dim] throughout, as in the JAX package.
 
 Dispatch (``attention``):
-  1. CUDA tensors -> the hand-written flash forward kernel
-     (``csrc/flash_fwd.cu``, replacing the Pallas TPU kernel); it takes
-     any sq <= sk, head_dim 64 or 128, bf16. A CUDA call it cannot take
-     raises: there is no quiet fallback on the card.
+  1. CUDA tensors -> flash attention: the hand-written forward kernel K1
+     (``csrc/flash_fwd.cu``) and, when a gradient is taken, the backward
+     kernel K2 (``csrc/flash_bwd.cu``), replacing the two Pallas TPU
+     kernels. Both are ``torch.library`` custom ops (``skytpu::flash_fwd``,
+     ``skytpu::flash_bwd``) joined by one ``torch.autograd.Function``, the
+     counterpart of the JAX ``custom_vjp``. They take any sq <= sk,
+     head_dim 64 or 128, bf16. A CUDA call they cannot take raises: there
+     is no quiet fallback on the card.
   2. CPU tensors -> the blockwise online-softmax loop, exactly as the JAX
      dispatcher picks it off the TPU.
-  ``force_impl`` ('flash' | 'blockwise' | 'reference') overrides either.
+  ``force_impl`` ('flash' | 'blockwise' | 'reference') overrides either;
+  'flash' on CPU tensors runs the same custom ops and autograd function
+  over the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ _NEG_INF = -1e30
 # Kernel launch counts, by kernel name: each wrapper adds one where it
 # launches its kernel and nowhere else (a CPU tensor takes the plain
 # version and leaves the count alone).
-LAUNCHES: Dict[str, int] = {'flash_fwd': 0}
+LAUNCHES: Dict[str, int] = {'flash_fwd': 0, 'flash_bwd': 0}
 
 
 def reset_launch_counts() -> None:
@@ -227,6 +233,199 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+# ---------------------------------------------------------------------------
+# Flash-attention backward: CUDA kernel K2 and its plain version.
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, dout: torch.Tensor,
+                                  causal: bool, scale: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain PyTorch version of the flash backward -> (dq, dk, dv) in the
+    dtypes of q, k, v. f32 math from the saved lse [b, hq, sq]; P and dS
+    cast to q's dtype before their products, as the TPU kernel does;
+    delta = rowsum(dO * O) in f32; GQA reads KV head h // (hq / hkv) and
+    dK/dV are summed over each KV head's group in f32."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f'q heads {hq} not a multiple of kv heads {hkv}')
+    grp = hq // hkv
+    qg = q.float().reshape(b, sq, hkv, grp, d)
+    dog = dout.float().reshape(b, sq, hkv, grp, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum('bqkgd,bskd->bkgqs', qg, kf) * scale
+    if causal:
+        allowed = _causal_mask(sq, sk, q.device)
+        s = torch.where(allowed, s, torch.full_like(s, _NEG_INF))
+    p = torch.exp(s - lse.reshape(b, hkv, grp, sq, 1)).to(q.dtype).float()
+    delta = (dog * out.float().reshape(b, sq, hkv, grp, d)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)[..., None]  # [b, hkv, grp, sq, 1]
+    dv = torch.einsum('bkgqs,bqkgd->bskd', p, dog)
+    dp = torch.einsum('bqkgd,bskd->bkgqs', dog, vf)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dk = torch.einsum('bkgqs,bqkgd->bskd', ds, qg) * scale
+    dq = torch.einsum('bkgqs,bskd->bqkgd', ds, kf) * scale
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+_flash_bwd_lib = None
+
+
+def _flash_bwd_kernel():
+    global _flash_bwd_lib
+    if _flash_bwd_lib is None:
+        lib = _build.load('flash_bwd')
+        fn = lib.skytpu_flash_bwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.skytpu_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.skytpu_cuda_error_string.restype = ctypes.c_char_p
+        _flash_bwd_lib = lib
+    return _flash_bwd_lib
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward -> (dq, dk, dv), shaped and typed as q, k,
+    v, from the forward's out [b, sq, hq, d] and lse [b, hq, sq].
+
+    CUDA tensors launch kernel K2 (``csrc/flash_bwd.cu``, the port of the
+    Pallas kernel ``_flash_bwd_kernel``); CPU tensors take
+    ``flash_attention_bwd_reference``. On the card, inputs the kernel does
+    not take raise."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    tensors = (q, k, v, out, lse, dout)
+    if not all(t.is_cuda for t in tensors):
+        if any(t.is_cuda for t in tensors):
+            raise ValueError('flash_attention_bwd: all inputs must share a '
+                             'device')
+        return flash_attention_bwd_reference(q, k, v, out, lse, dout,
+                                             causal, scale)
+    for name, t in (('q', q), ('k', k), ('v', v), ('out', out),
+                    ('dout', dout)):
+        _check_flash_operand(name, t)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f'flash kernel head_dim must be one of '
+                         f'{FLASH_HEAD_DIMS}, got {d}')
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f'k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do '
+                         f'not match q {tuple(q.shape)}')
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f'out/dout shapes {tuple(out.shape)}/'
+                         f'{tuple(dout.shape)} do not match q '
+                         f'{tuple(q.shape)}')
+    if (lse.shape != (b, hq, sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError(f'lse must be a contiguous f32 [b, hq, sq], got '
+                         f'{tuple(lse.shape)} {lse.dtype}')
+    if hq % hkv:
+        raise ValueError(f'q heads {hq} not a multiple of kv heads {hkv}')
+    if sq < 1 or sk < 1:
+        raise ValueError('flash kernel needs sq >= 1 and sk >= 1')
+    if causal and sq > sk:
+        raise ValueError(f'causal flash needs sq <= sk, got {sq} > {sk}')
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError('flash_attention_bwd: all inputs must share a '
+                         'device')
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]))
+    lib = _flash_bwd_kernel()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.skytpu_flash_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, d, strides,
+        float(scale), int(bool(causal)), q.device.index or 0, stream)
+    if err != 0:
+        msg = lib.skytpu_cuda_error_string(err).decode()
+        raise RuntimeError(f'flash_bwd kernel launch failed: {msg} ({err})')
+    LAUNCHES['flash_bwd'] += 1
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# The kernels as custom ops, and the autograd function that joins them.
+# Selective checkpointing (models/llama.py, remat 'dots') names
+# torch.ops.skytpu.flash_fwd to keep K1's out and lse instead of
+# recomputing them in the backward.
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op('skytpu::flash_fwd', mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_fwd(q, k, v, causal, scale)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    b, sq, hq, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, hq, sq), dtype=torch.float32))
+
+
+@torch.library.custom_op('skytpu::flash_bwd', mutates_args=())
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                 causal: bool, scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_attention_bwd(q, k, v, out, lse, dout, causal, scale)
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, dout, causal, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+class FlashAttention(torch.autograd.Function):
+    """out = flash attention of (q, k, v): forward K1, saving q, k, v, out
+    and lse; backward K2. The counterpart of the JAX ``_flash_attention``
+    custom_vjp, without its repeat and transposes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = torch.ops.skytpu.flash_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = torch.ops.skytpu.flash_bwd(
+            q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable flash attention: through ``FlashAttention`` when a
+    gradient can flow, else K1's op alone (serving)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, float(scale))
+    return torch.ops.skytpu.flash_fwd(q, k, v, causal, float(scale))[0]
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, scale: Optional[float] = None,
               block_size: int = 512,
@@ -238,7 +437,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl is None:
         impl = 'flash' if q.is_cuda else 'blockwise'
     if impl == 'flash':
-        return flash_attention_fwd(q, k, v, causal, scale)[0]
+        return flash_attention(q, k, v, causal, scale)
     if impl == 'blockwise':
         return blockwise_attention(q, k, v, causal=causal, scale=scale,
                                    block_size=block_size)

@@ -1930,8 +1930,9 @@ def build_parser():
                         help='KV storage dtype ($SKYTPU_KV_DTYPE, '
                              'default bf16; int8 is not yet ported)')
     parser.add_argument('--ckpt-dir', default=None,
-                        help='trained-weights checkpoint dir (not yet '
-                             'ported: omit for random weights)')
+                        help='serve the params of the latest checkpoint '
+                             'the PyTorch trainer wrote there (omit for '
+                             'random weights)')
     parser.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
                         help='device to serve on (default cuda; the '
                              'replica refuses to start without one '
@@ -1941,13 +1942,28 @@ def build_parser():
     return parser
 
 
+def _checkpoint_params(model: LlamaModel, ckpt_dir: str):
+    """Copy the params of the latest train checkpoint under ``ckpt_dir``
+    into ``model``; the optimizer state is read and dropped (checkpoints
+    hold the whole TrainState, train/checkpoint.py)."""
+    from skypilot_tpu_torch.train.checkpoint import CheckpointManager
+    if not os.path.isdir(ckpt_dir):
+        raise SystemExit(f'no checkpoint found in {ckpt_dir}')
+    mgr = CheckpointManager(ckpt_dir)
+    step = mgr.latest_step()
+    if step is None:
+        raise SystemExit(f'no checkpoint found in {ckpt_dir}')
+    params = model.params_from_numpy(mgr.read(step)['params'])
+    print(f'serving weights from step {step} of {ckpt_dir}', flush=True)
+    return params
+
+
 def build_scheduler(args) -> GenerationScheduler:
     """The replica's scheduler from parsed ``build_parser()`` arguments:
     random weights drawn from ``--seed`` directly on the device in the
-    model dtype (an 8 B model is never built in f32 or on the host)."""
-    if args.ckpt_dir:
-        raise SystemExit('--ckpt-dir (orbax checkpoints) is not yet '
-                         'ported to the PyTorch replica')
+    model dtype (an 8 B model is never built in f32 or on the host), or,
+    with ``--ckpt-dir``, the params of the latest checkpoint the port's
+    trainer saved there, cast to the model dtype."""
     if args.model != 'llama':
         raise SystemExit(f'--model {args.model} is not yet ported to the '
                          f'PyTorch replica')
@@ -1956,9 +1972,12 @@ def build_scheduler(args) -> GenerationScheduler:
                          f'{sorted(PRESETS)}')
     config = PRESETS[args.preset]
     model = LlamaModel(config, device=args.device)
-    gen = torch.Generator(device=model.device)
-    gen.manual_seed(args.seed)
-    params = model.init(gen)
+    if args.ckpt_dir:
+        params = _checkpoint_params(model, args.ckpt_dir)
+    else:
+        gen = torch.Generator(device=model.device)
+        gen.manual_seed(args.seed)
+        params = model.init(gen)
     return GenerationScheduler(config, params,
                                batch_slots=args.batch_slots,
                                max_len=args.max_len, model=model,

@@ -1,4 +1,5 @@
-"""The flash-attention forward kernel (``csrc/flash_fwd.cu``) on the card.
+"""The flash-attention kernels (``csrc/flash_fwd.cu``, K1, and
+``csrc/flash_bwd.cu``, K2) on the card.
 
 These tests need an NVIDIA GPU with ``nvcc``: they carry the ``cuda``
 marker and skip where there is none. On the GPU machine:
@@ -11,7 +12,10 @@ machine need not have.)
 Inputs are bf16 from a seeded numpy generator. The kernel is held
 against its plain PyTorch version on the same tensors: out within 2e-2
 (bf16 output against the f32 plain version cast to bf16) and lse within
-1e-3 (f32 row reductions in another order).
+1e-3 (f32 row reductions in another order); K2's dq, dk and dv each
+within 2e-2 of the plain version's largest |value|, floored at 1e-3
+(bf16 outputs; P and dS rounded to bf16 on both sides from sums taken
+in another order).
 """
 import numpy as np
 import pytest
@@ -21,6 +25,7 @@ from skypilot_tpu_torch.ops import attention as torch_attention
 
 OUT_TOL = 2e-2
 LSE_TOL = 1e-3
+GRAD_TOL = 2e-2
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +107,70 @@ def test_kernel_refuses_what_it_does_not_take(cuda, change, match):
                     dtype=spec['dtype'])
     with pytest.raises(ValueError, match=match):
         torch_attention.flash_attention_fwd(q, k, k, True)
+
+
+def _assert_grads_close(got, want):
+    """Within GRAD_TOL of the plain version's largest |value|, floored at
+    1e-3: a gradient that is zero in exact arithmetic (one key: dS =
+    P * (dP - delta) = 0) is f32 rounding noise on both sides, ~1e-6."""
+    for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        err = (g.float() - w.float()).abs().max().item()
+        scale = max(w.float().abs().max().item(), 1e-3)
+        assert err <= GRAD_TOL * scale, (name, err)
+
+
+@pytest.mark.parametrize('b,sq,sk,hq,hkv,d,causal', CASES)
+def test_bwd_kernel_matches_plain_version(cuda, b, sq, sk, hq, hkv, d,
+                                          causal):
+    rng = np.random.default_rng(sq * 1000 + sk + 7)
+    q = _bf16(rng, (b, sq, hq, d), cuda)
+    k = _bf16(rng, (b, sk, hkv, d), cuda)
+    v = _bf16(rng, (b, sk, hkv, d), cuda)
+    dout = _bf16(rng, (b, sq, hq, d), cuda)
+    scale = d ** -0.5
+    out, lse = torch_attention.flash_attention_fwd(q, k, v, causal, scale)
+    before = torch_attention.LAUNCHES['flash_bwd']
+    got = torch_attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                              causal, scale)
+    torch.cuda.synchronize()
+    assert torch_attention.LAUNCHES['flash_bwd'] == before + 1
+    _assert_grads_close(got, torch_attention.flash_attention_bwd_reference(
+        q, k, v, out, lse, dout, causal, scale))
+
+
+def test_bwd_kernel_reads_strided_inputs(cuda):
+    rng = np.random.default_rng(3)
+    qkv = _bf16(rng, (2, 96, 12, 64), cuda)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    dout = _bf16(rng, (2, 96, 8, 64), cuda)
+    out, lse = torch_attention.flash_attention_fwd(q, k, v, True, 0.125)
+    got = torch_attention.flash_attention_bwd(q, k, v, out, lse, dout, True,
+                                              0.125)
+    _assert_grads_close(got, torch_attention.flash_attention_bwd_reference(
+        q.contiguous(), k.contiguous(), v.contiguous(), out, lse, dout, True,
+        0.125))
+
+
+def test_gradients_flow_through_the_kernels(cuda):
+    """A CUDA ``attention()`` call that requires grad goes through
+    ``FlashAttention``: K1 forward, K2 backward, and q/k/v grads that
+    match the plain versions'."""
+    rng = np.random.default_rng(5)
+    q = _bf16(rng, (2, 130, 8, 128), cuda).requires_grad_()
+    k = _bf16(rng, (2, 130, 2, 128), cuda).requires_grad_()
+    v = _bf16(rng, (2, 130, 2, 128), cuda).requires_grad_()
+    dout = _bf16(rng, (2, 130, 8, 128), cuda)
+    before = dict(torch_attention.LAUNCHES)
+    out = torch_attention.attention(q, k, v)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert torch_attention.LAUNCHES['flash_fwd'] == before['flash_fwd'] + 1
+    assert torch_attention.LAUNCHES['flash_bwd'] == before['flash_bwd'] + 1
+    with torch.no_grad():
+        ref_out, ref_lse = torch_attention.flash_attention_fwd_reference(
+            q, k, v, True, 128 ** -0.5)
+        want = torch_attention.flash_attention_bwd_reference(
+            q, k, v, ref_out, ref_lse, dout, True, 128 ** -0.5)
+    _assert_grads_close(got, want)

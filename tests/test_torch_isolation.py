@@ -106,6 +106,20 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
     DecodeEngine(cfg, batch_slots=2, max_len=64, kv_block=16, device='cpu')
 
 
+def test_trainer_refuses_to_fall_back_to_the_cpu(no_cuda):
+    """``train.run`` and the trainer's model start on the card unless the
+    CPU is asked for."""
+    from skypilot_tpu_torch.models.llama import PRESETS, LlamaModel
+    from skypilot_tpu_torch.train import Trainer, run
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        run.main(['--preset', 'test-tiny', '--steps', '1'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        Trainer(LlamaModel(PRESETS['test-tiny']))
+    assert run.parse_args([]).device == 'cuda'
+    # Asked for explicitly, the CPU is fine.
+    Trainer(LlamaModel(PRESETS['test-tiny'], device='cpu'))
+
+
 def test_chip_smoke_alone_or_without_a_card_prints_no_result(tmp_path):
     """``chip_smoke.py`` copied into an empty directory (no port beside
     it) exits non-zero and never prints its success line — here, also

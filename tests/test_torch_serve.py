@@ -197,7 +197,7 @@ def test_cli_defaults_to_the_card_and_refuses_unported_options(
     assert args.device == 'cuda' and args.preset == 'llama-1b'
     args = parser.parse_args(['--preset', 'test-tiny', '--device', 'cpu',
                               '--ckpt-dir', '/nonexistent'])
-    with pytest.raises(SystemExit, match='not yet ported'):
+    with pytest.raises(SystemExit, match='no checkpoint found'):
         gs.build_scheduler(args)
     args = parser.parse_args(['--model', 'mixtral', '--device', 'cpu'])
     with pytest.raises(SystemExit, match='not yet ported'):
