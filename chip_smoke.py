@@ -50,12 +50,11 @@ KERNELS = ('flash_fwd', 'flash_bwd')
 
 # Llama-3-8B attention widths.
 HQ, HKV, HEAD_DIM = 32, 8, 128
-OUT_TOL = 2e-2   # bf16 output vs the f32 plain version cast to bf16
-LSE_TOL = 1e-3   # f32 row reductions taken in another order
-# K2: each of dq, dk, dv within this fraction of the plain version's max
-# |value| (bf16 outputs; P and dS rounded to bf16 in both, from S and dP
-# summed in another order).
-GRAD_TOL = 2e-2
+# K1's out and K2's dq, dk, dv: every (batch, 64-row tile, head) block's
+# RMS error within TILE_RTOL of that block's RMS (utils/compare.py: bf16
+# results, P and dS rounded to bf16 on both sides from sums taken in
+# another order). K1's lse: absolute, f32 row reductions in another order.
+LSE_TOL = 1e-3
 LOGIT_RTOL = 5e-2  # kernel-path prefill logits vs reference attention
 L2_SETS = 4  # input copies timed in turn: 4 x 31 MB at 1536 exceeds L2
 # The trainer as the train phase drives it: llama-1b (16/8 heads, d 128),
@@ -135,24 +134,11 @@ def flash_bwd_bound_ms(b: int, sq: int, sk: int, hq: int, hkv: int, d: int,
 # ---------------------------------------------------------------------------
 def phase_build(ctx) -> None:
     """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from skypilot_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    errors = {}
-
-    def build(name):
-        try:
-            _build.load(name)
-        except Exception as e:  # noqa: BLE001 — raised below
-            errors[name] = e
-
-    threads = [threading.Thread(target=build, args=(name,))
-               for name in KERNELS]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise RuntimeError(f'kernel build failed: {errors}')
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.load, KERNELS))  # re-raises a failed build
     for name in KERNELS:
         info = _build.build_info[name]
         ptxas = [ln.strip() for ln in str(info['log']).splitlines()
@@ -164,56 +150,45 @@ def phase_build(ctx) -> None:
 
 
 def phase_kernel(ctx) -> None:
+    """K1, then K2, against their plain versions on the card. Every case
+    is checked and printed before a failure raises."""
     import torch
     from skypilot_tpu_torch.ops import attention as attn
-    dev = torch.device('cuda')
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device='cuda')
     gen.manual_seed(1234)
     cases = [  # (sq, sk, causal, head_dim)
         (128, 128, True, HEAD_DIM), (1000, 1000, True, HEAD_DIM),
         (1536, 1536, True, HEAD_DIM), (2048, 2048, True, HEAD_DIM),
         (256, 1024, True, HEAD_DIM), (300, 777, False, HEAD_DIM),
         (200, 333, True, 64)]
+    failures = []
     worst = 0.0
     for sq, sk, causal, d in cases:
-        q = torch.randn(1, sq, HQ, d, device=dev, generator=gen,
-                        dtype=torch.float32).to(torch.bfloat16)
-        k = torch.randn(1, sk, HKV, d, device=dev, generator=gen,
-                        dtype=torch.float32).to(torch.bfloat16)
-        v = torch.randn(1, sk, HKV, d, device=dev, generator=gen,
-                        dtype=torch.float32).to(torch.bfloat16)
-        scale = d ** -0.5
-        out, lse = attn.flash_attention_fwd(q, k, v, causal, scale)
-        torch.cuda.synchronize()
-        ref_out, ref_lse = attn.flash_attention_fwd_reference(
-            q, k, v, causal, scale)
-        out_err = (out.float() - ref_out.float()).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        ok = (out_err <= OUT_TOL and lse_err <= LSE_TOL
-              and bool(torch.isfinite(out.float()).all()))
-        rec = {'phase': 'kernel', 'kernel': 'flash_fwd', 'sq': sq, 'sk': sk,
-               'causal': causal, 'head_dim': d, 'hq': HQ, 'hkv': HKV,
-               'out_max_abs_err': out_err, 'out_tol': OUT_TOL,
-               'lse_max_abs_err': lse_err, 'lse_tol': LSE_TOL, 'ok': ok}
-        if not ok:
-            emit(rec)
-            raise RuntimeError(f'flash_fwd disagrees with its plain '
-                               f'version at {rec}')
-        worst = max(worst, out_err)
+        q, k, v = _qkv(gen, 1, sq, sk, HQ, HKV, d)
+        rec = check_flash_fwd(q, k, v, causal,
+                              attn.flash_attention_fwd_reference)
         if causal and sq == sk and sq in (1536, 2048):
-            rec.update(time_flash(ctx, q, k, v, scale))
+            rec.update(time_flash(ctx, q, k, v, d ** -0.5))
         emit(rec)
-    ctx['flash'] = {'max_abs_err': worst}
+        worst = max(worst, rec['out_max_abs_err'])
+        if not rec['ok']:
+            failures.append(rec)
     # K1 at the train phase's shape (llama-1b heads, batch 4 x 8192).
     q, k, v = _qkv(gen, TRAIN_B, TRAIN_SEQ, TRAIN_SEQ, TRAIN_HQ, TRAIN_HKV,
                    HEAD_DIM)
-    emit({'phase': 'kernel', 'kernel': 'flash_fwd', 'b': TRAIN_B,
-          'sq': TRAIN_SEQ, 'sk': TRAIN_SEQ, 'hq': TRAIN_HQ,
-          'hkv': TRAIN_HKV, 'head_dim': HEAD_DIM, 'causal': True,
-          **time_flash(ctx, q, k, v, HEAD_DIM ** -0.5, sets=2,
-                       plain=False)})
+    rec = check_flash_fwd(q, k, v, True, _fwd_by_kv_head)
+    rec.update(time_flash(ctx, q, k, v, HEAD_DIM ** -0.5, sets=2,
+                          plain=_fwd_by_kv_head))
+    emit(rec)
+    worst = max(worst, rec['out_max_abs_err'])
+    if not rec['ok']:
+        failures.append(rec)
     del q, k, v
-    check_flash_bwd(ctx, gen)
+    ctx['flash'] = {'max_abs_err': worst}
+    failures += check_flash_bwd(ctx, gen)
+    if failures:
+        raise RuntimeError(f'{len(failures)} kernel case(s) disagree with '
+                           f'their plain versions: {failures}')
 
 
 def _qkv(gen, b, sq, sk, hq, hkv, d):
@@ -226,10 +201,48 @@ def _qkv(gen, b, sq, sk, hq, hkv, d):
     return rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
 
 
+def check_flash_fwd(q, k, v, causal, plain):
+    """One K1 case against ``plain`` on the same inputs: out per 64-row
+    tile (TILE_RTOL), lse absolute (LSE_TOL)."""
+    import torch
+    from skypilot_tpu_torch.ops import attention as attn
+    from skypilot_tpu_torch.utils.compare import TILE_RTOL, tile_rel_err
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    out, lse = attn.flash_attention_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = plain(q, k, v, causal, scale)
+    tile_err = tile_rel_err(out, ref_out)
+    lse_err = (lse - ref_lse).abs().max().item()
+    ok = (tile_err <= TILE_RTOL and lse_err <= LSE_TOL
+          and bool(torch.isfinite(out.float()).all()))
+    return {'phase': 'kernel', 'kernel': 'flash_fwd', 'b': b, 'sq': sq,
+            'sk': sk, 'causal': causal, 'head_dim': d, 'hq': hq, 'hkv': hkv,
+            'out_tile_rel_err': tile_err, 'tile_rtol': TILE_RTOL,
+            'out_max_abs_err': (out.float() - ref_out.float()).abs().max()
+            .item(), 'out_ref_max_abs': ref_out.float().abs().max().item(),
+            'lse_max_abs_err': lse_err, 'lse_tol': LSE_TOL, 'ok': ok}
+
+
+def _fwd_by_kv_head(q, k, v, causal, scale):
+    """The plain K1 version, one KV head's query group at a time (the same
+    function; the heads are independent), so that its f32 score tensors
+    fit on the card at long sequences."""
+    import torch
+    from skypilot_tpu_torch.ops import attention as attn
+    hkv = k.shape[2]
+    grp = q.shape[2] // hkv
+    parts = [attn.flash_attention_fwd_reference(
+        q[:, :, h * grp:(h + 1) * grp], k[:, :, h:h + 1], v[:, :, h:h + 1],
+        causal, scale) for h in range(hkv)]
+    return (torch.cat([p[0] for p in parts], dim=2),
+            torch.cat([p[1] for p in parts], dim=1))
+
+
 def _bwd_by_kv_head(q, k, v, out, lse, dout, causal, scale):
-    """The plain K2 version, one KV head's query group at a time (the
-    same function; the heads are independent), so that its f32 score
-    tensors fit beside the kernel's inputs at long sequences."""
+    """The plain K2 version, one KV head's query group at a time, as
+    ``_fwd_by_kv_head``."""
     import torch
     from skypilot_tpu_torch.ops import attention as attn
     hkv = k.shape[2]
@@ -243,18 +256,22 @@ def _bwd_by_kv_head(q, k, v, out, lse, dout, causal, scale):
     return tuple(torch.cat([p[i] for p in parts], dim=2) for i in range(3))
 
 
-def check_flash_bwd(ctx, gen) -> None:
+def check_flash_bwd(ctx, gen):
     """K2 against its plain version on the card: llama-1b (16/8) and
     llama3-8b (32/8) heads at d 128 and one d 64 case; out and lse come
-    from K1 on the same inputs. Then timed at the train shape."""
+    from K1 on the same inputs. dq, dk and dv each per 64-row tile
+    (TILE_RTOL). Then timed at the train shape. Returns the failed
+    cases' records."""
     import torch
     from skypilot_tpu_torch.ops import attention as attn
+    from skypilot_tpu_torch.utils.compare import TILE_RTOL, tile_rel_err
     cases = [  # (sq, sk, causal, head_dim)
         (128, 128, True, HEAD_DIM), (1000, 1000, True, HEAD_DIM),
         (2048, 2048, True, HEAD_DIM), (8192, 8192, True, HEAD_DIM),
         (256, 1024, True, HEAD_DIM), (300, 777, False, HEAD_DIM)]
     runs = [(hq, hkv, c) for hq, hkv in ((TRAIN_HQ, TRAIN_HKV), (HQ, HKV))
             for c in cases] + [(TRAIN_HQ, TRAIN_HKV, (200, 333, True, 64))]
+    failures = []
     worst = 0.0
     for hq, hkv, (sq, sk, causal, d) in runs:
         q, k, v = _qkv(gen, 1, sq, sk, hq, hkv, d)
@@ -267,20 +284,19 @@ def check_flash_bwd(ctx, gen) -> None:
         want = _bwd_by_kv_head(q, k, v, out, lse, dout, causal, scale)
         rec = {'phase': 'kernel', 'kernel': 'flash_bwd', 'sq': sq, 'sk': sk,
                'causal': causal, 'head_dim': d, 'hq': hq, 'hkv': hkv,
-               'tol': GRAD_TOL, 'ok': True}
+               'tile_rtol': TILE_RTOL, 'ok': True}
         for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
             err = (g.float() - w.float()).abs().max().item()
-            ref_max = w.float().abs().max().item()
+            rec[f'{name}_tile_rel_err'] = tile_rel_err(g, w)
             rec[f'{name}_max_abs_err'] = err
-            rec[f'{name}_ref_max_abs'] = ref_max
+            rec[f'{name}_ref_max_abs'] = w.float().abs().max().item()
             finite = bool(torch.isfinite(g.float()).all())
-            if not (finite and err <= GRAD_TOL * ref_max):
+            if not (finite and rec[f'{name}_tile_rel_err'] <= TILE_RTOL):
                 rec['ok'] = False
             worst = max(worst, err)
         emit(rec)
         if not rec['ok']:
-            raise RuntimeError(f'flash_bwd disagrees with its plain version '
-                               f'at {rec}')
+            failures.append(rec)
         del q, k, v, dout, out, lse, got, want
     ctx['flash_bwd'] = {'max_abs_err': worst}
     timing = time_flash_bwd(ctx)
@@ -288,6 +304,7 @@ def check_flash_bwd(ctx, gen) -> None:
     emit({'phase': 'kernel', 'kernel': 'flash_bwd', 'b': TRAIN_B,
           'sq': TRAIN_SEQ, 'sk': TRAIN_SEQ, 'hq': TRAIN_HQ,
           'hkv': TRAIN_HKV, 'head_dim': HEAD_DIM, 'causal': True, **timing})
+    return failures
 
 
 def time_flash_bwd(ctx):
@@ -322,58 +339,35 @@ def time_flash_bwd(ctx):
         qt, dot = q.transpose(1, 2), dout.transpose(1, 2)
         kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
         vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
-        lib_sets.append((dot, qt, kt, vt))
-    library_call = 'aten._scaled_dot_product_flash_attention_backward'
-    try:
-        for i, (dot, qt, kt, vt) in enumerate(lib_sets):
-            fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-                qt, kt, vt, 0.0, True, False, scale=scale)
-            lib_sets[i] = (dot, qt, kt, vt, fwd[:8])
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True, False, scale=scale)
+        lib_sets.append((dot, qt, kt, vt, fwd[:8]))
 
-        def library():
-            dot, qt, kt, vt, fwd = lib_sets[next(turn) % 2]
-            out, lse, cq, ck, mq, mk, seed, offset = fwd
-            torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed,
-                offset, scale=scale)
+    def library():
+        dot, qt, kt, vt, fwd = lib_sets[next(turn) % 2]
+        out, lse, cq, ck, mq, mk, seed, offset = fwd
+        torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed,
+            offset, scale=scale)
 
-        library_ms = time_cuda(library, iters=10)
-    except (RuntimeError, TypeError) as e:
-        # This torch has no such op signature: SDPA forward + backward
-        # minus SDPA forward, on the same inputs.
-        import torch.nn.functional as F
-        library_call = f'sdpa fwd+bwd - fwd ({type(e).__name__})'
-        grads = [(t[1].detach().requires_grad_(), t[2].detach()
-                  .requires_grad_(), t[3].detach().requires_grad_(), t[0])
-                 for t in lib_sets]
-
-        def fwd_only():
-            qt, kt, vt, _ = grads[next(turn) % 2]
-            with torch.no_grad():
-                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               scale=scale)
-
-        def fwd_bwd():
-            qt, kt, vt, dot = grads[next(turn) % 2]
-            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                 scale=scale)
-            torch.autograd.grad(out, (qt, kt, vt), dot)
-
-        library_ms = (time_cuda(fwd_bwd, iters=10)
-                      - time_cuda(fwd_only, iters=10))
+    library_ms = time_cuda(library, iters=10)
     bound_ms, bound_by = flash_bwd_bound_ms(b, s, s, hq, hkv, d, True, ctx)
     return {'kernel_ms': kernel_ms, 'plain_ms': plain_ms,
-            'library_ms': library_ms, 'library_call': library_call,
+            'library_ms': library_ms,
+            'library_call': 'aten._scaled_dot_product_flash_attention_'
+                            'backward',
             'bound_ms': bound_ms, 'bound_by': bound_by, 'card': ctx['smi']}
 
 
-def time_flash(ctx, q, k, v, scale, sets=L2_SETS, plain=True):
+def time_flash(ctx, q, k, v, scale, sets=L2_SETS, plain=None):
     """kernel / plain / SDPA times at one causal sq == sk shape. The
     kernel and SDPA take their turns over ``sets`` copies of the inputs,
     more bytes than the 50 MB L2 holds, so each call finds its q/k/v in
-    HBM as a prefill does (they come fresh from the projections)."""
+    HBM as a prefill does (they come fresh from the projections).
+    ``plain`` defaults to ``flash_attention_fwd_reference``."""
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops import attention as attn
+    plain = plain or attn.flash_attention_fwd_reference
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     copies = [(q, k, v)] + [(q.clone(), k.clone(), v.clone())
@@ -389,11 +383,11 @@ def time_flash(ctx, q, k, v, scale, sets=L2_SETS, plain=True):
         F.scaled_dot_product_attention(qi, ki, vi, is_causal=True,
                                        scale=scale, enable_gqa=True)
 
-    kernel_ms = time_cuda(kernel, iters=48 if sq <= 2048 else 10)
-    plain_ms = (time_cuda(
-        lambda: attn.flash_attention_fwd_reference(q, k, v, True, scale),
-        iters=5, warmup=1) if plain else None)
-    library_ms = time_cuda(sdpa, iters=48 if sq <= 2048 else 10)
+    short = sq <= 2048
+    kernel_ms = time_cuda(kernel, iters=48 if short else 10)
+    plain_ms = time_cuda(lambda: plain(q, k, v, True, scale),
+                         iters=5 if short else 2, warmup=1)
+    library_ms = time_cuda(sdpa, iters=48 if short else 10)
     bound_ms, bound_by = flash_bound_ms(b, sq, sk, hq, hkv, d, True, ctx)
     timing = {'kernel_ms': kernel_ms, 'plain_ms': plain_ms,
               'library_ms': library_ms, 'bound_ms': bound_ms,
@@ -784,14 +778,15 @@ def _wall_ms(fn, reps: int):
 
 def phase_breakdown(ctx) -> None:
     """Where a replica's time goes, one dispatch kind at a time, on the
-    serve phase's engine (llama3-8b, 8 slots, max_len 4096): monolithic
-    prefill per bucket, then the plain step and the K-4 verify step with
+    serve phase's engine (llama3-8b, 8 slots, max_len 4096): the host
+    cost of one K1 call by route, monolithic prefill per bucket, then the plain step and the K-4 verify step with
     every slot live at ~1000 tokens of context. For each: the host's
     enqueue time, the synced wall time, the device busy time from
     torch.profiler, and the ops that take the most device time. Not run
     by default (``--phases ...,breakdown``)."""
     import numpy as np
     import torch
+    from skypilot_tpu_torch.ops import attention as attn
     from skypilot_tpu_torch.serve import generation_server as gs
     sched = gs.build_scheduler(gs.build_parser().parse_args(SERVE_ARGV))
     eng, params, cfg = sched.engine, sched.params, sched.config
@@ -800,6 +795,25 @@ def phase_breakdown(ctx) -> None:
     gen.manual_seed(0)
     reps = 5
     with torch.no_grad():
+        # Host cost of one K1 call at a 128-token prefill's shape: the
+        # wrapper called directly, through its custom op, and through
+        # flash_attention (the model's call), synced after each call.
+        q, k, v = _qkv(torch.Generator(device=eng.device), 1, 128, 128, HQ,
+                       HKV, HEAD_DIM)
+        scale = HEAD_DIM ** -0.5
+        calls = {
+            'direct': lambda: attn.flash_attention_fwd(q, k, v, True, scale),
+            'custom_op': lambda: torch.ops.skytpu.flash_fwd(q, k, v, True,
+                                                           scale),
+            'flash_attention': lambda: attn.flash_attention(q, k, v, True,
+                                                            scale)}
+        rec = {'phase': 'breakdown', 'kind': 'k1_dispatch', 'tokens': 128}
+        for name, fn in calls.items():
+            fn()
+            rec[f'{name}_enqueue_us'], rec[f'{name}_wall_us'] = (
+                t * 1e3 for t in _wall_ms(fn, 200))
+        emit({**rec, 'card': ctx['smi']})
+        del q, k, v
         for bucket in (128, 1024, 1536):
             tokens = rng_np.integers(0, cfg.vocab_size, bucket).tolist()
 

@@ -26,7 +26,10 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), 'build', 'kernels')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-_lock = threading.Lock()
+# One lock per kernel, so that different kernels build in parallel (nvcc
+# runs as a subprocess, outside the GIL) while one kernel builds once.
+_locks_guard = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 # name -> {'seconds': build wall time (0.0 when the library was already
 # built), 'log': nvcc's output incl. -Xptxas -v register/smem report}
@@ -79,7 +82,9 @@ def build(name: str, nvcc: Optional[str] = None) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(build(name))
