@@ -4,15 +4,23 @@
     python3 chip_smoke.py --phases build,kernel
     python3 chip_smoke.py --phases device,build,kernel,train
     python3 chip_smoke.py --phases build,breakdown   # where the time goes
+    python3 chip_smoke.py --phases build,kernel --parent DIR  # old vs new
 
 Phases, each printing one JSON object per line:
   device  card name and power limit (torch + nvidia-smi);
   build   the hand-written CUDA kernels, compiled from csrc/ with nvcc,
-          one nvcc per source, all started together;
+          one nvcc per source, all started together; per kernel function
+          its registers and spills (-Xptxas -v) and its count of wgmma
+          (HGMMA) and TMA-load (UTMALDG) SASS instructions (cuobjdump),
+          failing if a flash kernel spills or lacks either;
   kernel  each kernel against its plain PyTorch version on the card, with
           stated tolerances, and timed beside its bound, its plain
           version and the PyTorch library call that computes the same
-          function;
+          function. Times are device time: the kernels' durations from
+          torch.profiler (CUPTI), averaged over the calls, with CUDA
+          events around the loop of calls beside them. With --parent, the
+          kernels of another checkout (e.g. a `git archive` of an earlier
+          commit) are built from its csrc/ and timed on the same inputs;
   train   the launchable trainer (train.run.main) at llama-1b full width
           and depth, batch 4 x seq 8192, remat 'dots', 3 steps on one
           fixed batch with checkpoints; kernel launch counts per step; a
@@ -31,6 +39,7 @@ failure exits non-zero before the last line. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -42,6 +51,7 @@ import time
 import traceback
 import urllib.error
 import urllib.request
+from typing import NamedTuple
 
 ALL_PHASES = ('device', 'build', 'kernel', 'train', 'serve')
 # Run only when named in --phases: a per-dispatch time breakdown.
@@ -86,7 +96,9 @@ def nvidia_smi_line() -> str:
 
 
 def time_cuda(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call over ``iters`` calls (CUDA events)."""
+    """Mean milliseconds per call over ``iters`` calls (CUDA events). When
+    a call's kernels take less time than the host takes to enqueue them,
+    this reads the host."""
     import torch
     for _ in range(warmup):
         fn()
@@ -98,6 +110,19 @@ def time_cuda(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+MS_SOURCE = 'torch.profiler device time, mean per call'
+
+
+def time_device(fn, iters: int, warmup: int = 3):
+    """(device ms, event ms) per call of ``fn``: the summed durations of
+    the kernels it launched, from torch.profiler, averaged over ``iters``
+    calls; and ``time_cuda`` over as many calls, beside it."""
+    for _ in range(warmup):
+        fn()
+    return (_profile_calls(fn, iters)['busy_ms'],
+            time_cuda(fn, iters, warmup=0))
 
 
 def visible_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -139,14 +164,26 @@ def phase_build(ctx) -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         list(pool.map(_build.load, KERNELS))  # re-raises a failed build
+    wall = time.perf_counter() - t0
+    faults = []
     for name in KERNELS:
         info = _build.build_info[name]
-        ptxas = [ln.strip() for ln in str(info['log']).splitlines()
-                 if 'registers' in ln or 'spill' in ln
-                 or 'Compiling entry' in ln]
+        functions = _build.ptxas_report(str(info['log']))
+        for fn, ops in _build.sass_counts(str(info['path'])).items():
+            functions.setdefault(fn, {}).update(ops)
+        # Registers: the count at entry (the launch bound); the producer
+        # and consumer warpgroups then move to 24 and 240 (setmaxnreg).
         emit({'phase': 'build', 'kernel': name,
               'nvcc_s': round(float(info['seconds']), 3),
-              'wall_s': round(time.perf_counter() - t0, 3), 'ptxas': ptxas})
+              'wall_s': round(wall, 3), 'functions': functions})
+        for fn, rec in functions.items():
+            if 'delta' in fn:  # K2's delta pass: a row sum, no product
+                continue
+            if (rec.get('spill_stores') or rec.get('spill_loads')
+                    or not rec.get('HGMMA') or not rec.get('UTMALDG')):
+                faults.append((fn, rec))
+    if faults:
+        raise RuntimeError(f'flash kernels spill or lack wgmma/TMA: {faults}')
 
 
 def phase_kernel(ctx) -> None:
@@ -154,21 +191,19 @@ def phase_kernel(ctx) -> None:
     is checked and printed before a failure raises."""
     import torch
     from skypilot_tpu_torch.ops import attention as attn
+    if ctx.get('parent'):
+        ctx['parent_libs'] = build_parent_kernels(ctx['parent'])
     gen = torch.Generator(device='cuda')
     gen.manual_seed(1234)
-    cases = [  # (sq, sk, causal, head_dim)
-        (128, 128, True, HEAD_DIM), (1000, 1000, True, HEAD_DIM),
-        (1536, 1536, True, HEAD_DIM), (2048, 2048, True, HEAD_DIM),
-        (256, 1024, True, HEAD_DIM), (300, 777, False, HEAD_DIM),
-        (200, 333, True, 64)]
     failures = []
     worst = 0.0
-    for sq, sk, causal, d in cases:
-        q, k, v = _qkv(gen, 1, sq, sk, HQ, HKV, d)
-        rec = check_flash_fwd(q, k, v, causal,
+    for case in FWD_CASES:
+        q, k, v = _case_inputs(gen, case)[:3]
+        rec = check_flash_fwd(q, k, v, case.causal,
                               attn.flash_attention_fwd_reference)
-        if causal and sq == sk and sq in (1536, 2048):
-            rec.update(time_flash(ctx, q, k, v, d ** -0.5))
+        rec['fused'] = case.fused
+        if case.causal and case.sq == case.sk in (1536, 2048):
+            rec.update(time_flash(ctx, q, k, v, case.d ** -0.5))
         emit(rec)
         worst = max(worst, rec['out_max_abs_err'])
         if not rec['ok']:
@@ -191,6 +226,39 @@ def phase_kernel(ctx) -> None:
                            f'their plain versions: {failures}')
 
 
+class Case(NamedTuple):
+    b: int
+    sq: int
+    sk: int
+    causal: bool
+    d: int
+    hq: int
+    hkv: int
+    fused: bool = False  # q, k, v as views of one [b, s, hq + 2 hkv, d]
+
+
+# Ragged query and key tiles (127, 129, 1000, 193 x 1000), a prefix whose
+# offset is no tile multiple (193 x 1000, 256 x 1024), non-causal, d 64,
+# strided views of one fused projection, the serve path's prefills.
+FWD_CASES = [Case(1, s, s, True, HEAD_DIM, HQ, HKV)
+             for s in (127, 128, 129, 1000, 1536, 2048)] + [
+    Case(1, 193, 1000, True, HEAD_DIM, HQ, HKV),
+    Case(1, 256, 1024, True, HEAD_DIM, HQ, HKV),
+    Case(1, 300, 777, False, HEAD_DIM, HQ, HKV),
+    Case(1, 200, 333, True, 64, HQ, HKV),
+    Case(2, 300, 300, True, HEAD_DIM, HQ, HKV, fused=True)]
+# K2 at llama-1b (16/8) and llama3-8b (32/8) heads, up to the train
+# phase's 8192.
+BWD_CASES = [Case(1, sq, sk, causal, HEAD_DIM, hq, hkv)
+             for hq, hkv in ((TRAIN_HQ, TRAIN_HKV), (HQ, HKV))
+             for sq, sk, causal in ((127, 127, True), (129, 129, True),
+                                    (1000, 1000, True), (2048, 2048, True),
+                                    (8192, 8192, True), (193, 1000, True),
+                                    (256, 1024, True), (300, 777, False))] + [
+    Case(1, 200, 333, True, 64, TRAIN_HQ, TRAIN_HKV),
+    Case(2, 300, 300, True, HEAD_DIM, HQ, HKV, fused=True)]
+
+
 def _qkv(gen, b, sq, sk, hq, hkv, d):
     import torch
     dev = torch.device('cuda')
@@ -199,6 +267,21 @@ def _qkv(gen, b, sq, sk, hq, hkv, d):
         return torch.randn(*shape, device=dev, generator=gen,
                            dtype=torch.float32).to(torch.bfloat16)
     return rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
+
+
+def _case_inputs(gen, case):
+    """q, k, v and a dO for one case; with ``fused``, q, k and v are
+    strided views of one [b, s, hq + 2 hkv, d] tensor (sq == sk)."""
+    import torch
+    b, sq, sk, hq, hkv, d = (case.b, case.sq, case.sk, case.hq, case.hkv,
+                             case.d)
+    dout = _qkv(gen, b, sq, sq, hq, hkv, d)[0]
+    if not case.fused:
+        return (*_qkv(gen, b, sq, sk, hq, hkv, d), dout)
+    qkv = torch.randn(b, sq, hq + 2 * hkv, d, device='cuda', generator=gen,
+                      dtype=torch.float32).to(torch.bfloat16)
+    return (qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:],
+            dout)
 
 
 def check_flash_fwd(q, k, v, causal, plain):
@@ -257,34 +340,27 @@ def _bwd_by_kv_head(q, k, v, out, lse, dout, causal, scale):
 
 
 def check_flash_bwd(ctx, gen):
-    """K2 against its plain version on the card: llama-1b (16/8) and
-    llama3-8b (32/8) heads at d 128 and one d 64 case; out and lse come
-    from K1 on the same inputs. dq, dk and dv each per 64-row tile
-    (TILE_RTOL). Then timed at the train shape. Returns the failed
-    cases' records."""
+    """K2 against its plain version on the card, case by case
+    (``BWD_CASES``); out and lse come from K1 on the same inputs. dq, dk
+    and dv each per 64-row tile (TILE_RTOL). Then timed at the train
+    shape. Returns the failed cases' records."""
     import torch
     from skypilot_tpu_torch.ops import attention as attn
     from skypilot_tpu_torch.utils.compare import TILE_RTOL, tile_rel_err
-    cases = [  # (sq, sk, causal, head_dim)
-        (128, 128, True, HEAD_DIM), (1000, 1000, True, HEAD_DIM),
-        (2048, 2048, True, HEAD_DIM), (8192, 8192, True, HEAD_DIM),
-        (256, 1024, True, HEAD_DIM), (300, 777, False, HEAD_DIM)]
-    runs = [(hq, hkv, c) for hq, hkv in ((TRAIN_HQ, TRAIN_HKV), (HQ, HKV))
-            for c in cases] + [(TRAIN_HQ, TRAIN_HKV, (200, 333, True, 64))]
     failures = []
     worst = 0.0
-    for hq, hkv, (sq, sk, causal, d) in runs:
-        q, k, v = _qkv(gen, 1, sq, sk, hq, hkv, d)
-        dout = _qkv(gen, 1, sq, sq, hq, hkv, d)[0]
-        scale = d ** -0.5
+    for case in BWD_CASES:
+        q, k, v, dout = _case_inputs(gen, case)
+        causal, scale = case.causal, case.d ** -0.5
         out, lse = attn.flash_attention_fwd(q, k, v, causal, scale)
         got = attn.flash_attention_bwd(q, k, v, out, lse, dout, causal,
                                        scale)
         torch.cuda.synchronize()
         want = _bwd_by_kv_head(q, k, v, out, lse, dout, causal, scale)
-        rec = {'phase': 'kernel', 'kernel': 'flash_bwd', 'sq': sq, 'sk': sk,
-               'causal': causal, 'head_dim': d, 'hq': hq, 'hkv': hkv,
-               'tile_rtol': TILE_RTOL, 'ok': True}
+        rec = {'phase': 'kernel', 'kernel': 'flash_bwd', 'b': case.b,
+               'sq': case.sq, 'sk': case.sk, 'causal': causal,
+               'head_dim': case.d, 'hq': case.hq, 'hkv': case.hkv,
+               'fused': case.fused, 'tile_rtol': TILE_RTOL, 'ok': True}
         for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
             err = (g.float() - w.float()).abs().max().item()
             rec[f'{name}_tile_rel_err'] = tile_rel_err(g, w)
@@ -305,6 +381,51 @@ def check_flash_bwd(ctx, gen):
           'sq': TRAIN_SEQ, 'sk': TRAIN_SEQ, 'hq': TRAIN_HQ,
           'hkv': TRAIN_HKV, 'head_dim': HEAD_DIM, 'causal': True, **timing})
     return failures
+
+
+def build_parent_kernels(parent: str):
+    """The kernels of another checkout at ``parent`` (its csrc/), built
+    side by side into build/kernels-parent/ and bound to the same C
+    interface, for timing beside this checkout's."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from skypilot_tpu_torch.ops import _build
+    from skypilot_tpu_torch.ops import attention as attn
+    csrc = os.path.join(parent, 'skypilot_tpu_torch', 'csrc')
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                       'kernels-parent')
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        paths = list(pool.map(lambda n: _build.build(n, csrc_dir=csrc,
+                                                     build_dir=out),
+                              KERNELS))
+    emit({'phase': 'kernel', 'parent': parent,
+          'build_s': time.perf_counter() - t0})
+    libs = dict(zip(KERNELS, map(ctypes.CDLL, paths)))
+    return {'flash_fwd': attn.bind_fwd(libs['flash_fwd']),
+            'flash_bwd': attn.bind_bwd(libs['flash_bwd'])}
+
+
+@contextlib.contextmanager
+def _kernels_from(libs):
+    """Route the wrappers to other libraries (``build_parent_kernels``)
+    for the duration of the block."""
+    from skypilot_tpu_torch.ops import attention as attn
+    saved = attn._flash_lib, attn._flash_bwd_lib
+    attn._flash_lib = libs['flash_fwd']
+    attn._flash_bwd_lib = libs['flash_bwd']
+    try:
+        yield
+    finally:
+        attn._flash_lib, attn._flash_bwd_lib = saved
+
+
+def _parent_ms(ctx, fn, iters):
+    """Device ms of ``fn`` with the parent checkout's kernels, or None."""
+    if not ctx.get('parent_libs'):
+        return None
+    with _kernels_from(ctx['parent_libs']):
+        return time_device(fn, iters)[0]
 
 
 def time_flash_bwd(ctx):
@@ -331,9 +452,10 @@ def time_flash_bwd(ctx):
     def kernel():
         attn.flash_attention_bwd(*sets[next(turn) % 2], True, scale)
 
-    kernel_ms = time_cuda(kernel, iters=10)
-    plain_ms = time_cuda(lambda: _bwd_by_kv_head(*sets[0], True, scale),
-                         iters=2, warmup=1)
+    kernel_ms, kernel_event_ms = time_device(kernel, iters=10)
+    parent_ms = _parent_ms(ctx, kernel, iters=10)
+    plain_ms = time_device(lambda: _bwd_by_kv_head(*sets[0], True, scale),
+                           iters=2, warmup=1)[0]
     lib_sets = []
     for q, k, v, _, _, dout in sets:
         qt, dot = q.transpose(1, 2), dout.transpose(1, 2)
@@ -350,20 +472,22 @@ def time_flash_bwd(ctx):
             dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed,
             offset, scale=scale)
 
-    library_ms = time_cuda(library, iters=10)
+    library_ms, library_event_ms = time_device(library, iters=10)
     bound_ms, bound_by = flash_bwd_bound_ms(b, s, s, hq, hkv, d, True, ctx)
-    return {'kernel_ms': kernel_ms, 'plain_ms': plain_ms,
-            'library_ms': library_ms,
+    return {'kernel_ms': kernel_ms, 'kernel_event_ms': kernel_event_ms,
+            'parent_ms': parent_ms, 'plain_ms': plain_ms,
+            'library_ms': library_ms, 'library_event_ms': library_event_ms,
             'library_call': 'aten._scaled_dot_product_flash_attention_'
                             'backward',
             'bound_ms': bound_ms, 'bound_by': bound_by, 'card': ctx['smi']}
 
 
 def time_flash(ctx, q, k, v, scale, sets=L2_SETS, plain=None):
-    """kernel / plain / SDPA times at one causal sq == sk shape. The
-    kernel and SDPA take their turns over ``sets`` copies of the inputs,
-    more bytes than the 50 MB L2 holds, so each call finds its q/k/v in
-    HBM as a prefill does (they come fresh from the projections).
+    """kernel / plain / SDPA device times at one causal sq == sk shape
+    (and the parent checkout's kernel, with --parent). The kernel and
+    SDPA take their turns over ``sets`` copies of the inputs, more bytes
+    than the 50 MB L2 holds, so each call finds its q/k/v in HBM as a
+    prefill does (they come fresh from the projections).
     ``plain`` defaults to ``flash_attention_fwd_reference``."""
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops import attention as attn
@@ -383,15 +507,17 @@ def time_flash(ctx, q, k, v, scale, sets=L2_SETS, plain=None):
         F.scaled_dot_product_attention(qi, ki, vi, is_causal=True,
                                        scale=scale, enable_gqa=True)
 
-    short = sq <= 2048
-    kernel_ms = time_cuda(kernel, iters=48 if short else 10)
-    plain_ms = time_cuda(lambda: plain(q, k, v, True, scale),
-                         iters=5 if short else 2, warmup=1)
-    library_ms = time_cuda(sdpa, iters=48 if short else 10)
+    iters = 48 if sq <= 2048 else 10
+    kernel_ms, kernel_event_ms = time_device(kernel, iters)
+    parent_ms = _parent_ms(ctx, kernel, iters)
+    plain_ms = time_device(lambda: plain(q, k, v, True, scale),
+                           iters=5 if sq <= 2048 else 2, warmup=1)[0]
+    library_ms, library_event_ms = time_device(sdpa, iters)
     bound_ms, bound_by = flash_bound_ms(b, sq, sk, hq, hkv, d, True, ctx)
-    timing = {'kernel_ms': kernel_ms, 'plain_ms': plain_ms,
-              'library_ms': library_ms, 'bound_ms': bound_ms,
-              'bound_by': bound_by, 'card': ctx['smi']}
+    timing = {'kernel_ms': kernel_ms, 'kernel_event_ms': kernel_event_ms,
+              'parent_ms': parent_ms, 'plain_ms': plain_ms,
+              'library_ms': library_ms, 'library_event_ms': library_event_ms,
+              'bound_ms': bound_ms, 'bound_by': bound_by, 'card': ctx['smi']}
     ctx.setdefault('flash_timing', {})[(b, sq, hq)] = timing
     return timing
 
@@ -853,7 +979,7 @@ def phase_breakdown(ctx) -> None:
 def kernels_line(ctx):
     """K1 timed at the serve path's largest prefill (1536, llama3-8b
     heads), K2 at the train shape; launches summed over the serve and
-    train runs."""
+    train runs. Every time is device time (``time_device``)."""
     fwd = ctx['flash_timing'][(1, 1536, HQ)]
     bwd = ctx['flash_bwd_timing']
     train = ctx['train_launches']
@@ -865,7 +991,7 @@ def kernels_line(ctx):
         'max_abs_err': ctx['flash']['max_abs_err'],
         'ms': fwd['kernel_ms'], 'plain_ms': fwd['plain_ms'],
         'bound_ms': fwd['bound_ms'], 'bound_by': fwd['bound_by'],
-        'library_ms': fwd['library_ms'],
+        'library_ms': fwd['library_ms'], 'ms_source': MS_SOURCE,
     }, {
         'name': 'flash_bwd', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
@@ -874,7 +1000,7 @@ def kernels_line(ctx):
         'max_abs_err': ctx['flash_bwd']['max_abs_err'],
         'ms': bwd['kernel_ms'], 'plain_ms': bwd['plain_ms'],
         'bound_ms': bwd['bound_ms'], 'bound_by': bwd['bound_by'],
-        'library_ms': bwd['library_ms'],
+        'library_ms': bwd['library_ms'], 'ms_source': MS_SOURCE,
     }]
 
 
@@ -882,6 +1008,10 @@ def kernels_line(ctx):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--phases', default=','.join(ALL_PHASES))
+    parser.add_argument('--parent', default=None,
+                        help='a checkout of an earlier commit (e.g. a git '
+                        'archive) whose kernels the kernel phase times '
+                        'beside these, on the same inputs')
     args = parser.parse_args()
     phases = [p for p in args.phases.split(',') if p]
     unknown = set(phases) - set(ALL_PHASES) - set(EXTRA_PHASES)
@@ -897,7 +1027,7 @@ def main() -> int:
     if here not in sys.path:
         sys.path.insert(0, here)
     ctx = {'name': torch.cuda.get_device_name(0),
-           'count': torch.cuda.device_count()}
+           'count': torch.cuda.device_count(), 'parent': args.parent}
     ctx['smi'] = nvidia_smi_line()
     from skypilot_tpu_torch import accelerators
     ctx['peak_flops'], ctx['peak_bw'] = accelerators.card_peaks(ctx['smi'])

@@ -14,55 +14,62 @@
 // d 128, seq 8192, causal) it does 10*hq*d FLOPs per visible (q, k) pair
 // (five products) against ~2 bytes per element of q/k/v/o/dO/dq/dk/dv,
 // far above the ~295 FLOP/byte ridge: tensor-core throughput bounds it.
-// So every product runs on the tensor cores (mma.sync m16n8k16, bf16
-// operands, f32 accumulators) and neither S, P nor dS ever leaves the SM.
+// So every product is a wgmma (m64nNk16, bf16 operands, f32 accumulators)
+// fed by TMA, and neither S, P nor dS ever leaves the SM.
 //
 // Design, and how it differs from the TPU kernel on purpose:
-//  * Three launches on one stream, no atomics, deterministic:
+//  * Three launches on one stream, no atomics, deterministic (the train
+//    resume compares losses bit for bit):
 //      delta   one warp per (b, s, h) row: rowsum(dO * O) in f32;
-//      dkdv    one CTA per (64-key tile, batch * kv-head): walks every
-//              query head of the GQA group and every query tile that can
-//              see its keys, keeping dK and dV in f32 registers, so the
-//              group sum happens in f32 inside the kernel (the TPU path
-//              repeats K/V per query head and sums bf16 per-head grads);
-//      dq      one CTA per (64-query tile, batch * query-head): walks the
-//              key tiles its rows can see, recomputing S, P and dP.
+//      dkdv    one CTA per (128 keys, batch * kv head): a producer
+//              warpgroup (one warp: TMA for K and V once, then Q, dO and
+//              the rows' lse and delta for every 64-row query step of
+//              every query head of the GQA group, through a 2-stage ring)
+//              and two consumer warpgroups of 64 keys each. S^T = K Q^T and
+//              dP^T = V dO^T run with both operands in shared memory
+//              (K-major); P^T and dS^T, repacked from their accumulators
+//              into bf16 A fragments, feed dV += P^T dO and dK += dS^T Q
+//              with dO and Q as MN-major B operands. dK and dV stay in f32
+//              registers over the whole group, so the GQA sum is taken in
+//              f32 inside the kernel (the TPU path repeats K/V per query
+//              head and sums bf16 per-head grads);
+//      dq      one CTA per (128 query rows, batch * query head), two
+//              consumer warpgroups of 64 rows: Q and dO loaded once, K and
+//              V in 64-key tiles through the ring; S = Q K^T and
+//              dP = dO V^T from shared memory, dQ += dS K with dS from
+//              registers and K as the MN-major B operand.
 //    The TPU kernel computes dQ as one partial per (k-block, q-block) and
 //    sums them after; the dq pass costs two more products per pair but no
 //    partial buffer and no order-dependent sum.
-//  * Transposed operands without transposes: dkdv computes S^T = K Q^T
-//    and dP^T = V dO^T directly (keys as rows), so P^T and dS^T come out
-//    of the accumulators in the A-operand layout of dV += P^T dO and
-//    dK += dS^T Q, as P does for P V in the forward kernel.
-//  * GQA without a repeat, strided [b, s, h, d] tensors from the wrapper,
+//  * GQA without a repeat, strided [b, s, h, d] tensors through TMA maps,
 //    any sq <= sk with queries at the end of the keys (q_start = sk - sq),
-//    ragged edges masked, causal tiles past the diagonal skipped,
-//    head_dim 64 and 128.
-//  * Plain 16-byte loads into padded shared tiles; cp.async/TMA pipelining,
-//    ldmatrix and wgmma are later work.
+//    ragged edges masked (TMA reads rows past the end as zeros, and their
+//    P is set to 0), causal tiles past the diagonal skipped, the CTAs with
+//    the most causal work first, head_dim 64 and 128.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (skypilot_tpu_torch/ops/_build.py)
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileKV = 64;   // keys per dkdv CTA (16 per warp)
-constexpr int kStepQ = 32;    // query rows per dkdv inner step
-constexpr int kTileQ = 64;    // query rows per dq CTA (16 per warp)
-constexpr int kStepK = 32;    // keys per dq inner step
-constexpr int kPad = 8;       // bf16 elements of row padding in smem
-constexpr float kNegInf = -1e30f;
+using namespace sm90;
+
+constexpr int kKeys = 128;   // keys per dkdv CTA (64 per consumer)
+constexpr int kQStep = 64;   // query rows per dkdv step
+constexpr int kRows = 128;   // query rows per dq CTA (64 per consumer)
+constexpr int kKStep = 64;   // keys per dq step
+constexpr int kStages = 2;   // ring depth of both passes
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kDeltaWarps = 4;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  // TMA maps of q, k, v, dO; their box rows differ between the dkdv and
+  // the dq pass, so each pass gets its own Params.
+  CUtensorMap tq, tk, tv, tdo;
   const __nv_bfloat16* o;
   const __nv_bfloat16* dout;
   const float* lse;   // [b, hq, sq]
@@ -70,11 +77,8 @@ struct Params {
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  int b, sq, sk, hq, hkv;
+  int b, sq, sk, hq, hkv, tiles;
   // Element strides of [b, s, h, d] tensors (d stride is 1).
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   long long do_sb, do_ss, do_sh;
   long long dq_sb, dq_ss, dq_sh;
@@ -84,89 +88,12 @@ struct Params {
   int causal;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 from different rows packed into one 32-bit register
-// (lo = first row, hi = second row).
-__device__ __forceinline__ uint32_t pack_rows(const __nv_bfloat16* lo,
-                                              const __nv_bfloat16* hi) {
-  uint16_t a = *reinterpret_cast<const uint16_t*>(lo);
-  uint16_t b = *reinterpret_cast<const uint16_t*>(hi);
-  return static_cast<uint32_t>(a) | (static_cast<uint32_t>(b) << 16);
-}
-
-// D = A * B + D for one m16n8k16 tile; A row-major 16x16, B 16x8 (k x n).
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment (16 rows x 16 columns starting at column c0) of a padded
-// shared tile whose fragment rows start at `r0`.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* r0,
-                                       int c0) {
-  const int tig = threadIdx.x % 4;
-  const __nv_bfloat16* r1 = r0 + 8 * (D + kPad);
-  a[0] = ld_u32(r0 + c0 + tig * 2);
-  a[1] = ld_u32(r1 + c0 + tig * 2);
-  a[2] = ld_u32(r0 + c0 + tig * 2 + 8);
-  a[3] = ld_u32(r1 + c0 + tig * 2 + 8);
-}
-
-// Copy rows [row0, row0 + ROWS) of one head of a [b, s, h, d] tensor into
-// a padded shared tile, zero-filling rows at or past `rows`.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
-                                          const __nv_bfloat16* base,
-                                          long long row_stride, int row0,
-                                          int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(
-          base + static_cast<long long>(row0 + r) * row_stride + c * 8);
-    }
-    *reinterpret_cast<uint4*>(smem + r * (D + kPad) + c * 8) = val;
-  }
-}
-
-// A operand of one 16-deep k-step built from two neighbouring 8-column
-// accumulator tiles (the C layout of tiles 2kk and 2kk+1 is the A layout
-// of k-step kk), rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo,
-                                         const float* hi) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
 // ---------------------------------------------------------------------------
 // delta = rowsum(dO * O) in f32: one warp per (b, s, h) row.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_delta_kernel(const Params p) {
-  const long long row = static_cast<long long>(blockIdx.x) * kWarps +
+__global__ void __launch_bounds__(kDeltaWarps * 32)
+flash_bwd_delta_kernel(const __grid_constant__ Params p) {
+  const long long row = static_cast<long long>(blockIdx.x) * kDeltaWarps +
                         threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= static_cast<long long>(p.b) * p.sq * p.hq) return;
@@ -194,316 +121,460 @@ flash_bwd_delta_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// dK and dV for 64 keys of one (batch, kv-head), summed over the group.
+// dK and dV for 128 keys of one (batch, kv head), summed over the group.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kTileKV * (D + kPad);
-  __nv_bfloat16* sQ = sV + kTileKV * (D + kPad);
-  __nv_bfloat16* sdO = sQ + kStepQ * (D + kPad);
-  float* sLse = reinterpret_cast<float*>(sdO + kStepQ * (D + kPad));
-  float* sDelta = sLse + kStepQ;
+struct DkdvSmem {
+  static constexpr int kKV = kKeys * D * 2;   // the K tile, the V tile
+  static constexpr int kStep = kQStep * D * 2;  // a Q step, a dO step
+  static constexpr int kStats = kQStep * 4;     // lse or delta of a step
+  static constexpr int kBars = 8 * (1 + 2 * kStages);
+  static constexpr int kBytes =
+      2 * kKV + kStages * (2 * kStep + 2 * kStats) + kBars + 1024;
+};
 
-  const int k0 = blockIdx.x * kTileKV;
-  const int bi = blockIdx.y / p.hkv;
-  const int hk = blockIdx.y % p.hkv;
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ Params p) {
+  using L = DkdvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = align_1024(smem_raw);
+  unsigned char* sV = sK + L::kKV;
+  unsigned char* sQ = sV + L::kKV;                 // [kStages] steps
+  unsigned char* sdO = sQ + kStages * L::kStep;    // [kStages] steps
+  float* sLse = reinterpret_cast<float*>(sdO + kStages * L::kStep);
+  float* sDelta = sLse + kStages * kQStep;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDelta + kStages * kQStep);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  // Key tiles in order: the first keys, seen by the most causal queries,
+  // start first.
+  const int bh_count = p.b * p.hkv;
+  const int k0 = static_cast<int>(blockIdx.x) / bh_count * kKeys;
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
+  const int bi = bh / p.hkv;
+  const int hk = bh % p.hkv;
   const int grp = p.hq / p.hkv;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tig = lane % 4;
   const int q_start = p.sk - p.sq;
+  // Query steps that can see this tile's first key: all, or (causal)
+  // those at or past it. Every key is seen by the last query, so there
+  // is at least one step.
+  int q_begin = 0;
+  if (p.causal) q_begin = max(0, k0 - q_start) / kQStep * kQStep;
+  const int q_steps = (p.sq - q_begin + kQStep - 1) / kQStep;
+  const int steps = grp * q_steps;
 
-  load_tile<D, kTileKV>(sK, p.k + bi * p.k_sb + hk * p.k_sh, p.k_ss, k0,
-                        p.sk);
-  load_tile<D, kTileKV>(sV, p.v + bi * p.v_sb + hk * p.v_sh, p.v_ss, k0,
-                        p.sk);
-
-  float acc_dk[D / 8][4];
-  float acc_dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
   }
-  // This thread's two key rows (accumulator rows g and g + 8).
-  const int key_a = k0 + warp * 16 + g;
-  const int key_b = key_a + 8;
-  const __nv_bfloat16* k_rows = sK + (warp * 16 + g) * (D + kPad);
-  const __nv_bfloat16* v_rows = sV + (warp * 16 + g) * (D + kPad);
+  __syncthreads();
 
-  // Query rows that can see this tile's first key: all, or (causal)
-  // those at or past it.
-  int qt_begin = 0;
-  if (p.causal) qt_begin = max(0, k0 - q_start) / kStepQ * kStepQ;
-
-  for (int hh = 0; hh < grp; ++hh) {
-    const int h = hk * grp + hh;
-    const __nv_bfloat16* q_base = p.q + bi * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* do_base = p.dout + bi * p.do_sb + h * p.do_sh;
-    const float* lse_row = p.lse + (static_cast<long long>(bi) * p.hq + h) *
-                                       p.sq;
-    const float* delta_row = p.delta +
-                             (static_cast<long long>(bi) * p.hq + h) * p.sq;
-    for (int q0 = qt_begin; q0 < p.sq; q0 += kStepQ) {
-      __syncthreads();  // previous step fully consumed (and sK/sV loaded)
-      load_tile<D, kStepQ>(sQ, q_base, p.q_ss, q0, p.sq);
-      load_tile<D, kStepQ>(sdO, do_base, p.do_ss, q0, p.sq);
-      if (threadIdx.x < kStepQ) {
-        const int qi = q0 + threadIdx.x;
-        sLse[threadIdx.x] = qi < p.sq ? lse_row[qi] : 0.f;
-        sDelta[threadIdx.x] = qi < p.sq ? delta_row[qi] : 0.f;
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: warp 0 fills the ring.
+    reg_dealloc<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        tma_prefetch_map(&p.tq);
+        tma_prefetch_map(&p.tdo);
+        mbar_arrive_expect_tx(kv_full, 2 * L::kKV);
+        tma_load_tile<D>(sK, &p.tk, kv_full, kKeys, hk, k0, bi);
+        tma_load_tile<D>(sV, &p.tv, kv_full, kKeys, hk, k0, bi);
       }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries per warp.
-      float s[kStepQ / 8][4];
-      float dp[kStepQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < kStepQ / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a<D>(ka, k_rows, kk * 16);
-        load_a<D>(va, v_rows, kk * 16);
-#pragma unroll
-        for (int j = 0; j < kStepQ / 8; ++j) {
-          const __nv_bfloat16* qrow = sQ + (j * 8 + g) * (D + kPad) +
-                                      kk * 16 + tig * 2;
-          const __nv_bfloat16* dorow = sdO + (j * 8 + g) * (D + kPad) +
-                                       kk * 16 + tig * 2;
-          mma_bf16(s[j], ka, ld_u32(qrow), ld_u32(qrow + 8));
-          mma_bf16(dp[j], va, ld_u32(dorow), ld_u32(dorow + 8));
+      for (int i = 0; i < steps; ++i) {
+        const int h = hk * grp + i / q_steps;
+        const int q0 = q_begin + (i % q_steps) * kQStep;
+        const int stage = i % kStages;
+        mbar_wait(&empty[stage], ((i / kStages) & 1) ^ 1);
+        // lse (pre-scaled to log2 units) and delta of the step's rows;
+        // rows past sq read as 0 (their P is masked to 0).
+        const long long stat = (static_cast<long long>(bi) * p.hq + h) * p.sq;
+        for (int r = lane; r < kQStep; r += 32) {
+          const int qi = q0 + r;
+          sLse[stage * kQStep + r] = qi < p.sq ? p.lse[stat + qi] * kLog2e
+                                               : 0.f;
+          sDelta[stage * kQStep + r] = qi < p.sq ? p.delta[stat + qi] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[stage], 2 * L::kStep);
+          tma_load_tile<D>(sQ + stage * L::kStep, &p.tq, &full[stage],
+                           kQStep, h, q0, bi);
+          tma_load_tile<D>(sdO + stage * L::kStep, &p.tdo, &full[stage],
+                           kQStep, h, q0, bi);
+        } else {
+          mbar_arrive(&full[stage]);
         }
       }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 keys each.
+    reg_alloc<240>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int g = (tid % 32) / 4;
+    const int tig = tid % 4;
+    const int key_a = k0 + cw * 64 + warp * 16 + g;  // this thread's keys
+    const int key_b = key_a + 8;
+    const float sl2 = p.scale * kLog2e;
 
-      // P^T = exp(S^T * scale - lse), rounded to bf16; dS^T likewise.
+    float dk[D / 2];
+    float dv[D / 2];
 #pragma unroll
-      for (int j = 0; j < kStepQ / 8; ++j) {
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    float st[kQStep / 2];   // S^T, then P^T: 64 keys x 64 queries
+    float dpt[kQStep / 2];  // dP^T, then dS^T
+    uint32_t pa[kQStep / 16][4];
+    uint32_t dsa[kQStep / 16][4];
+
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < steps; ++i) {
+      const int q0 = q_begin + (i % q_steps) * kQStep;
+      const int stage = i % kStages;
+      const unsigned char* q_tile = sQ + stage * L::kStep;
+      const unsigned char* do_tile = sdO + stage * L::kStep;
+      const float* lse = sLse + stage * kQStep;
+      const float* delta = sDelta + stage * kQStep;
+      mbar_wait(&full[stage], (i / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(st, desc_k_major(sK, kKeys, cw * 64, kk),
+                 desc_k_major(q_tile, kQStep, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(dpt, desc_k_major(sV, kKeys, cw * 64, kk),
+                 desc_k_major(do_tile, kQStep, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+      // Masks only where the block crosses the diagonal or an edge.
+      const bool need_mask = q0 + kQStep > p.sq || k0 + kKeys > p.sk ||
+                             (p.causal && k0 + kKeys - 1 > q_start + q0);
+      wgmma_wait<1>();
+      fence_regs(st);
+      // P^T = exp(S^T * scale - lse), rounded to bf16.
+#pragma unroll
+      for (int j = 0; j < kQStep / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = j * 8 + tig * 2 + (e & 1);
-          const int qi = q0 + col;
-          const int key = (e < 2) ? key_a : key_b;
-          const bool masked = qi >= p.sq || key >= p.sk ||
-                              (p.causal && key > q_start + qi);
-          const float pr =
-              masked ? 0.f : round_bf16(__expf(s[j][e] * p.scale -
-                                               sLse[col]));
-          s[j][e] = pr;
-          dp[j][e] = pr * (dp[j][e] - sDelta[col]);
+          float pr = exp2_approx(fmaf(st[4 * j + e], sl2, -lse[col]));
+          if (need_mask) {
+            const int qi = q0 + col;
+            const int key = (e < 2) ? key_a : key_b;
+            if (qi >= p.sq || key >= p.sk ||
+                (p.causal && key > q_start + qi)) {
+              pr = 0.f;
+            }
+          }
+          st[4 * j + e] = round_bf16(pr);
         }
       }
-
-      // dV += P^T dO and dK += dS^T Q over this step's 32 queries.
+      wgmma_wait<0>();
+      fence_regs(dpt);
+      // dS^T = P^T * (dP^T - delta).
 #pragma unroll
-      for (int kk = 0; kk < kStepQ / 16; ++kk) {
-        uint32_t pa[4], dsa[4];
-        acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-        acc_to_a(dsa, dp[2 * kk], dp[2 * kk + 1]);
-        const int r0 = kk * 16 + tig * 2;
-        const __nv_bfloat16* do0 = sdO + r0 * (D + kPad);
-        const __nv_bfloat16* q0r = sQ + r0 * (D + kPad);
+      for (int j = 0; j < kQStep / 8; ++j) {
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          const int c = j * 8 + g;
-          mma_bf16(acc_dv[j], pa,
-                   pack_rows(do0 + c, do0 + (D + kPad) + c),
-                   pack_rows(do0 + 8 * (D + kPad) + c,
-                             do0 + 9 * (D + kPad) + c));
-          mma_bf16(acc_dk[j], dsa,
-                   pack_rows(q0r + c, q0r + (D + kPad) + c),
-                   pack_rows(q0r + 8 * (D + kPad) + c,
-                             q0r + 9 * (D + kPad) + c));
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + tig * 2 + (e & 1);
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - delta[col]);
         }
       }
-    }
-  }
-
-  __nv_bfloat16* dk_base = p.dk + bi * p.dk_sb + hk * p.dk_sh;
-  __nv_bfloat16* dv_base = p.dv + bi * p.dv_sb + hk * p.dv_sh;
+      acc_to_a<kQStep>(pa, st);
+      acc_to_a<kQStep>(dsa, dpt);
+      // dV += P^T dO and dK += dS^T Q over this step's 64 queries.
+      wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + tig * 2;
-    if (key_a < p.sk) {
-      *reinterpret_cast<uint32_t*>(dk_base + key_a * p.dk_ss + col) =
-          pack_bf16(acc_dk[j][0] * p.scale, acc_dk[j][1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dv_base + key_a * p.dv_ss + col) =
-          pack_bf16(acc_dv[j][0], acc_dv[j][1]);
+      for (int kk = 0; kk < kQStep / 16; ++kk) {
+        wgmma_rs(dv, pa[kk], desc_mn_major(do_tile, kQStep, kk), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kQStep / 16; ++kk) {
+        wgmma_rs(dk, dsa[kk], desc_mn_major(q_tile, kQStep, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pa);
+      fence_regs(dsa);
+      if (tid == 0) mbar_arrive(&empty[stage]);
     }
-    if (key_b < p.sk) {
-      *reinterpret_cast<uint32_t*>(dk_base + key_b * p.dk_ss + col) =
-          pack_bf16(acc_dk[j][2] * p.scale, acc_dk[j][3] * p.scale);
-      *reinterpret_cast<uint32_t*>(dv_base + key_b * p.dv_ss + col) =
-          pack_bf16(acc_dv[j][2], acc_dv[j][3]);
+
+    __nv_bfloat16* dk_base = p.dk + bi * p.dk_sb + hk * p.dk_sh;
+    __nv_bfloat16* dv_base = p.dv + bi * p.dv_sb + hk * p.dv_sh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + tig * 2;
+      if (key_a < p.sk) {
+        *reinterpret_cast<uint32_t*>(dk_base + key_a * p.dk_ss + col) =
+            pack_bf16(dk[4 * j] * p.scale, dk[4 * j + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dv_base + key_a * p.dv_ss + col) =
+            pack_bf16(dv[4 * j], dv[4 * j + 1]);
+      }
+      if (key_b < p.sk) {
+        *reinterpret_cast<uint32_t*>(dk_base + key_b * p.dk_ss + col) =
+            pack_bf16(dk[4 * j + 2] * p.scale, dk[4 * j + 3] * p.scale);
+        *reinterpret_cast<uint32_t*>(dv_base + key_b * p.dv_ss + col) =
+            pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// dQ for 64 query rows of one (batch, query-head).
+// dQ for 128 query rows of one (batch, query head).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + kTileQ * (D + kPad);
-  __nv_bfloat16* sK = sdO + kTileQ * (D + kPad);
-  __nv_bfloat16* sV = sK + kStepK * (D + kPad);
+struct DqSmem {
+  static constexpr int kQ = kRows * D * 2;    // the Q tile, the dO tile
+  static constexpr int kKV = kKStep * D * 2;  // a K step, a V step
+  static constexpr int kBars = 8 * (1 + 2 * kStages);
+  static constexpr int kBytes = 2 * kQ + 2 * kStages * kKV + kBars + 1024;
+};
 
-  const int q0 = blockIdx.x * kTileQ;
-  const int bh = blockIdx.y;
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ Params p) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sdO = sQ + L::kQ;
+  unsigned char* sK = sdO + L::kQ;              // [kStages] steps
+  unsigned char* sV = sK + kStages * L::kKV;    // [kStages] steps
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(sV + kStages * L::kKV);
+  uint64_t* full = qdo_full + 1;
+  uint64_t* empty = full + kStages;
+
+  // Heaviest causal query tiles first, as in the forward kernel.
+  const int bh_count = p.b * p.hq;
+  const int m_block = p.tiles - 1 - static_cast<int>(blockIdx.x) / bh_count;
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
   const int bi = bh / p.hq;
   const int h = bh % p.hq;
   const int hk = h / (p.hq / p.hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tig = lane % 4;
+  const int q0 = m_block * kRows;
   const int q_start = p.sk - p.sq;
+  int n_end = p.sk;
+  if (p.causal) n_end = min(p.sk, q_start + min(q0 + kRows, p.sq));
+  const int n_steps = (n_end + kKStep - 1) / kKStep;
 
-  load_tile<D, kTileQ>(sQ, p.q + bi * p.q_sb + h * p.q_sh, p.q_ss, q0,
-                       p.sq);
-  load_tile<D, kTileQ>(sdO, p.dout + bi * p.do_sb + h * p.do_sh, p.do_ss,
-                       q0, p.sq);
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  // Q and dO fragments for this warp's 16 rows, all of d, in registers.
-  uint32_t qa[D / 16][4];
-  uint32_t da[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a<D>(qa[kk], sQ + (warp * 16 + g) * (D + kPad), kk * 16);
-    load_a<D>(da[kk], sdO + (warp * 16 + g) * (D + kPad), kk * 16);
-  }
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-  const long long stat = static_cast<long long>(bh) * p.sq;
-  const float lse_a = row_a < p.sq ? p.lse[stat + row_a] : 0.f;
-  const float lse_b = row_b < p.sq ? p.lse[stat + row_b] : 0.f;
-  const float dl_a = row_a < p.sq ? p.delta[stat + row_a] : 0.f;
-  const float dl_b = row_b < p.sq ? p.delta[stat + row_b] : 0.f;
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every copy.
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&p.tk);
+      tma_prefetch_map(&p.tv);
+      mbar_arrive_expect_tx(qdo_full, 2 * L::kQ);
+      tma_load_tile<D>(sQ, &p.tq, qdo_full, kRows, h, q0, bi);
+      tma_load_tile<D>(sdO, &p.tdo, qdo_full, kRows, h, q0, bi);
+      for (int i = 0; i < n_steps; ++i) {
+        const int stage = i % kStages;
+        mbar_wait(&empty[stage], ((i / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[stage], 2 * L::kKV);
+        tma_load_tile<D>(sK + stage * L::kKV, &p.tk, &full[stage], kKStep,
+                         hk, i * kKStep, bi);
+        tma_load_tile<D>(sV + stage * L::kKV, &p.tv, &full[stage], kKStep,
+                         hk, i * kKStep, bi);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each.
+    reg_alloc<240>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int g = (tid % 32) / 4;
+    const int tig = tid % 4;
+    const int row_a = q0 + cw * 64 + warp * 16 + g;  // this thread's rows
+    const int row_b = row_a + 8;
+    const float sl2 = p.scale * kLog2e;
+    // lse in log2 units and delta of the two rows; rows past sq read
+    // zeros through TMA, give dS = 0 and are never stored.
+    const long long stat = static_cast<long long>(bh) * p.sq;
+    const float lse_a = row_a < p.sq ? p.lse[stat + row_a] * kLog2e : 0.f;
+    const float lse_b = row_b < p.sq ? p.lse[stat + row_b] * kLog2e : 0.f;
+    const float dl_a = row_a < p.sq ? p.delta[stat + row_a] : 0.f;
+    const float dl_b = row_b < p.sq ? p.delta[stat + row_b] : 0.f;
+    // Steps below n_plain need no mask.
+    int n_plain = p.sk / kKStep;
+    if (p.causal) n_plain = min(n_plain, (q_start + q0 + 1) / kKStep);
 
-  float acc_dq[D / 8][4];
+    float dq[D / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dq[j][e] = 0.f;
-  }
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    float s[kKStep / 2];   // S, then P: 64 rows x 64 keys
+    float dp[kKStep / 2];  // dP, then dS
+    uint32_t dsa[kKStep / 16][4];
 
-  int n_end = p.sk;
-  if (p.causal) {
-    const int last_q = min(q0 + kTileQ, p.sq) - 1;
-    n_end = min(p.sk, q_start + last_q + 1);
-  }
-  const __nv_bfloat16* k_base = p.k + bi * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* v_base = p.v + bi * p.v_sb + hk * p.v_sh;
-
-  for (int k0 = 0; k0 < n_end; k0 += kStepK) {
-    __syncthreads();  // previous tile fully consumed
-    load_tile<D, kStepK>(sK, k_base, p.k_ss, k0, p.sk);
-    load_tile<D, kStepK>(sV, v_base, p.v_ss, k0, p.sk);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 32 keys per warp.
-    float s[kStepK / 8][4];
-    float dp[kStepK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kStepK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      const __nv_bfloat16* krow = sK + (j * 8 + g) * (D + kPad) + tig * 2;
-      const __nv_bfloat16* vrow = sV + (j * 8 + g) * (D + kPad) + tig * 2;
+    mbar_wait(qdo_full, 0);
+    for (int i = 0; i < n_steps; ++i) {
+      const int stage = i % kStages;
+      const unsigned char* k_tile = sK + stage * L::kKV;
+      const unsigned char* v_tile = sV + stage * L::kKV;
+      mbar_wait(&full[stage], (i / kStages) & 1);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        mma_bf16(s[j], qa[kk], ld_u32(krow + kk * 16),
-                 ld_u32(krow + kk * 16 + 8));
-        mma_bf16(dp[j], da[kk], ld_u32(vrow + kk * 16),
-                 ld_u32(vrow + kk * 16 + 8));
+        wgmma_ss(s, desc_k_major(sQ, kRows, cw * 64, kk),
+                 desc_k_major(k_tile, kKStep, 0, kk), kk > 0);
       }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(dp, desc_k_major(sdO, kRows, cw * 64, kk),
+                 desc_k_major(v_tile, kKStep, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      // P = exp(S * scale - lse), rounded to bf16.
+#pragma unroll
+      for (int j = 0; j < kKStep / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pr = exp2_approx(
+              fmaf(s[4 * j + e], sl2, -((e < 2) ? lse_a : lse_b)));
+          if (i >= n_plain) {
+            const int key = i * kKStep + j * 8 + tig * 2 + (e & 1);
+            const int row = (e < 2) ? row_a : row_b;
+            if (key >= p.sk || (p.causal && key > q_start + row)) pr = 0.f;
+          }
+          s[4 * j + e] = round_bf16(pr);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < kKStep / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dp[4 * j + e] = s[4 * j + e] *
+                          (dp[4 * j + e] - ((e < 2) ? dl_a : dl_b));
+        }
+      }
+      acc_to_a<kKStep>(dsa, dp);
+      // dQ += dS K over this step's 64 keys.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKStep / 16; ++kk) {
+        wgmma_rs(dq, dsa[kk], desc_mn_major(k_tile, kKStep, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsa);
+      if (tid == 0) mbar_arrive(&empty[stage]);
     }
 
+    __nv_bfloat16* dq_base = p.dq + bi * p.dq_sb + h * p.dq_sh;
 #pragma unroll
-    for (int j = 0; j < kStepK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + tig * 2 + (e & 1);
-        const int row = (e < 2) ? row_a : row_b;
-        const bool masked = row >= p.sq || key >= p.sk ||
-                            (p.causal && key > q_start + row);
-        const float pr = masked ? 0.f
-                                : round_bf16(__expf(s[j][e] * p.scale -
-                                                    ((e < 2) ? lse_a
-                                                             : lse_b)));
-        dp[j][e] = pr * (dp[j][e] - ((e < 2) ? dl_a : dl_b));
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + tig * 2;
+      if (row_a < p.sq) {
+        *reinterpret_cast<uint32_t*>(dq_base + row_a * p.dq_ss + col) =
+            pack_bf16(dq[4 * j] * p.scale, dq[4 * j + 1] * p.scale);
       }
-    }
-
-    // dQ += dS K over this tile's 32 keys.
-#pragma unroll
-    for (int kk = 0; kk < kStepK / 16; ++kk) {
-      uint32_t dsa[4];
-      acc_to_a(dsa, dp[2 * kk], dp[2 * kk + 1]);
-      const __nv_bfloat16* k0r = sK + (kk * 16 + tig * 2) * (D + kPad);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int c = j * 8 + g;
-        mma_bf16(acc_dq[j], dsa, pack_rows(k0r + c, k0r + (D + kPad) + c),
-                 pack_rows(k0r + 8 * (D + kPad) + c,
-                           k0r + 9 * (D + kPad) + c));
+      if (row_b < p.sq) {
+        *reinterpret_cast<uint32_t*>(dq_base + row_b * p.dq_ss + col) =
+            pack_bf16(dq[4 * j + 2] * p.scale, dq[4 * j + 3] * p.scale);
       }
-    }
-  }
-
-  __nv_bfloat16* dq_base = p.dq + bi * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + tig * 2;
-    if (row_a < p.sq) {
-      *reinterpret_cast<uint32_t*>(dq_base + row_a * p.dq_ss + col) =
-          pack_bf16(acc_dq[j][0] * p.scale, acc_dq[j][1] * p.scale);
-    }
-    if (row_b < p.sq) {
-      *reinterpret_cast<uint32_t*>(dq_base + row_b * p.dq_ss + col) =
-          pack_bf16(acc_dq[j][2] * p.scale, acc_dq[j][3] * p.scale);
     }
   }
 }
 
+// Host: the three launches. `strides` holds the (batch, seq, head)
+// element strides of q, k, v, o, dO, dq, dk, dv in that order.
 template <int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+int launch(Params& p, const void* q, const void* k, const void* v,
+           const long long* st, int device, cudaStream_t stream) {
+  const long long* qs = st;
+  const long long* ks = st + 3;
+  const long long* vs = st + 6;
+  const long long* dos = st + 12;
+  Params pq = p;  // the dq pass: boxes of kRows query rows, kKStep keys
+  int err = make_tma_map(&p.tq, q, p.b, p.sq, p.hq, D, qs[0], qs[1], qs[2],
+                         kQStep);
+  if (err == 0) {
+    err = make_tma_map(&p.tdo, p.dout, p.b, p.sq, p.hq, D, dos[0], dos[1],
+                       dos[2], kQStep);
+  }
+  if (err == 0) {
+    err = make_tma_map(&p.tk, k, p.b, p.sk, p.hkv, D, ks[0], ks[1], ks[2],
+                       kKeys);
+  }
+  if (err == 0) {
+    err = make_tma_map(&p.tv, v, p.b, p.sk, p.hkv, D, vs[0], vs[1], vs[2],
+                       kKeys);
+  }
+  if (err == 0) {
+    err = make_tma_map(&pq.tq, q, p.b, p.sq, p.hq, D, qs[0], qs[1], qs[2],
+                       kRows);
+  }
+  if (err == 0) {
+    err = make_tma_map(&pq.tdo, p.dout, p.b, p.sq, p.hq, D, dos[0], dos[1],
+                       dos[2], kRows);
+  }
+  if (err == 0) {
+    err = make_tma_map(&pq.tk, k, p.b, p.sk, p.hkv, D, ks[0], ks[1], ks[2],
+                       kKStep);
+  }
+  if (err == 0) {
+    err = make_tma_map(&pq.tv, v, p.b, p.sk, p.hkv, D, vs[0], vs[1], vs[2],
+                       kKStep);
+  }
+  if (err != 0) return err;
+  // The shared-memory opt-in, once per device.
+  static bool ready[64] = {};
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        DkdvSmem<D>::kBytes);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DqSmem<D>::kBytes);
+    }
+    if (e != cudaSuccess) return e;
+    ready[device] = true;
+  }
+
   const long long rows = static_cast<long long>(p.b) * p.sq * p.hq;
   flash_bwd_delta_kernel<D>
-      <<<static_cast<unsigned>((rows + kWarps - 1) / kWarps), kThreads, 0,
-         stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+      <<<static_cast<unsigned>((rows + kDeltaWarps - 1) / kDeltaWarps),
+         kDeltaWarps * 32, 0, stream>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
 
-  const int smem_kv = (2 * kTileKV + 2 * kStepQ) * (D + kPad) *
-                          static_cast<int>(sizeof(__nv_bfloat16)) +
-                      2 * kStepQ * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_kv);
-  if (err != cudaSuccess) return err;
-  dim3 grid_kv((p.sk + kTileKV - 1) / kTileKV, p.b * p.hkv);
-  flash_bwd_dkdv_kernel<D><<<grid_kv, kThreads, smem_kv, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const long long kv_grid =
+      static_cast<long long>((p.sk + kKeys - 1) / kKeys) * p.b * p.hkv;
+  flash_bwd_dkdv_kernel<D><<<static_cast<unsigned>(kv_grid), kThreads,
+                             DkdvSmem<D>::kBytes, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
 
-  const int smem_q = (2 * kTileQ + 2 * kStepK) * (D + kPad) *
-                     static_cast<int>(sizeof(__nv_bfloat16));
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_q);
-  if (err != cudaSuccess) return err;
-  dim3 grid_q((p.sq + kTileQ - 1) / kTileQ, p.b * p.hq);
-  flash_bwd_dq_kernel<D><<<grid_q, kThreads, smem_q, stream>>>(p);
+  pq.tiles = (p.sq + kRows - 1) / kRows;
+  const long long q_grid = static_cast<long long>(pq.tiles) * p.b * p.hq;
+  flash_bwd_dq_kernel<D><<<static_cast<unsigned>(q_grid), kThreads,
+                           DqSmem<D>::kBytes, stream>>>(pq);
   return cudaGetLastError();
 }
 
@@ -518,9 +589,6 @@ extern "C" int skytpu_flash_bwd_bf16(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<const __nv_bfloat16*>(o);
   p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.lse = static_cast<const float*>(lse);
@@ -529,25 +597,29 @@ extern "C" int skytpu_flash_bwd_bf16(
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   p.b = b; p.sq = sq; p.sk = sk; p.hq = hq; p.hkv = hkv;
+  p.tiles = 0;
   // strides: (batch, seq, head) element strides of q, k, v, o, dO, dq, dk,
-  // dv in that order.
-  long long* dst[8][3] = {
-      {&p.q_sb, &p.q_ss, &p.q_sh},    {&p.k_sb, &p.k_ss, &p.k_sh},
-      {&p.v_sb, &p.v_ss, &p.v_sh},    {&p.o_sb, &p.o_ss, &p.o_sh},
-      {&p.do_sb, &p.do_ss, &p.do_sh}, {&p.dq_sb, &p.dq_ss, &p.dq_sh},
-      {&p.dk_sb, &p.dk_ss, &p.dk_sh}, {&p.dv_sb, &p.dv_ss, &p.dv_sh}};
-  for (int t = 0; t < 8; ++t) {
-    for (int i = 0; i < 3; ++i) *dst[t][i] = strides[t * 3 + i];
+  // dv in that order; the TMA maps take those of q, k, v and dO.
+  long long* dst[5][3] = {
+      {&p.o_sb, &p.o_ss, &p.o_sh},    {&p.do_sb, &p.do_ss, &p.do_sh},
+      {&p.dq_sb, &p.dq_ss, &p.dq_sh}, {&p.dk_sb, &p.dk_ss, &p.dk_sh},
+      {&p.dv_sb, &p.dv_ss, &p.dv_sh}};
+  for (int t = 0; t < 5; ++t) {
+    for (int i = 0; i < 3; ++i) *dst[t][i] = strides[(t + 3) * 3 + i];
   }
   p.scale = scale;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return static_cast<int>(launch<64>(p, s));
-  if (d == 128) return static_cast<int>(launch<128>(p, s));
+  if (d == 64) return launch<64>(p, q, k, v, strides, device, s);
+  if (d == 128) return launch<128>(p, q, k, v, strides, device, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Error text for a code returned above (the wrapper raises with it).
 extern "C" const char* skytpu_cuda_error_string(int code) {
+  if (code >= kTmaErrorBase) {
+    return "cuTensorMapEncodeTiled refused a TMA map of an operand "
+           "(CUresult = code - 100000)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -4,307 +4,345 @@
 // in skypilot_tpu/ops/attention.py (pl.pallas_call at :254). Same function:
 // softmax(Q K^T * scale) V with an online softmax (running max m and sum l
 // in f32), queries at the END of the key sequence (q_start = sk - sq),
-// masked scores -1e30 (not -inf), l clamped to 1e-30, and the per-row
-// logsumexp m + log(l) emitted for the backward pass.
+// masked scores -1e30 (not -inf), l clamped to 1e-30, P rounded to bf16
+// before P V (the TPU kernel casts P to the input dtype), and the per-row
+// natural-log logsumexp m + log(l) emitted in f32 for the backward pass.
 //
-// What bounds it on an H100: causal prefill at llama3-8b widths (d 128,
-// 32 query heads, a few thousand tokens) does ~4*hq*d FLOPs per visible
-// (q, k) pair against 2 bytes per element of q/k/v/o, so it sits far above
-// the card's ~295 FLOP/byte ridge: tensor-core throughput bounds it. The
-// design therefore keeps every product on the tensor cores (mma.sync
-// m16n8k16, bf16 operands, f32 accumulators), keeps S and P in registers
-// (P is re-used as the A operand of P.V straight from the S accumulator
-// layout, no round trip through shared memory), and never writes the
-// score matrix anywhere. Tiles whose keys all lie past the causal
-// diagonal are skipped, so causal work is ~half of the full square.
+// What bounds it on an H100: causal attention at llama widths (d 128, a
+// few thousand tokens) does 4*hq*d FLOPs per visible (q, k) pair against
+// 2 bytes per element of q/k/v/o, far above the card's ~295 FLOP/byte
+// ridge: tensor-core throughput bounds it. The design feeds the tensor
+// cores at their Hopper rate:
+//  * one CTA per (128 query rows, batch * query head): a producer
+//    warpgroup (one thread issues TMA, setmaxnreg down to 24 registers)
+//    and two consumer warpgroups of 64 query rows each (up to 240);
+//  * Q is loaded once; K and V tiles of 128 keys flow through a 2-stage
+//    ring of 128-byte-swizzled shared tiles filled by TMA and handed over
+//    with mbarriers (full: TMA landed; empty: both consumers are done);
+//  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//    (K-major); O += P V takes P from registers (the S accumulator repacked
+//    to bf16 A fragments, no trip through shared memory) and V as an
+//    MN-major B operand;
+//  * the next tile's S product is issued before this tile's P V product,
+//    and the softmax of the next tile runs while P V is in flight;
+//  * softmax in f32 registers with exp2 and a log2(e)-prescaled scale;
+//    masks only on tiles that cross the diagonal or a ragged edge (keys at
+//    or past sk read as zeros through TMA and are masked explicitly);
+//  * the CTAs with the most causal work (the last query tiles) start
+//    first, so the launch does not end on a tail of long CTAs.
 //
 // Differences from the TPU kernel, on purpose:
 //  * GQA without a repeat: query head h reads KV head h / (hq / hkv).
-//  * Strided [b, s, h, d] inputs: the transposes to [b*h, s, d] are gone.
-//  * Any sq <= sk: ragged tile edges are masked here (rows past sq are
-//    never stored, keys past sk score -1e30).
-//
-// Layout: one CTA of 4 warps per (64-query tile, batch*query-head). Each
-// warp owns 16 query rows. K/V are walked in 64-row tiles staged in shared
-// memory (plain 16-byte loads; cp.async/TMA pipelining and wgmma are later
-// work). Rows are padded by 8 bf16 so fragment loads are bank-conflict
-// free.
+//  * Strided [b, s, h, d] inputs through TMA maps: no transposes.
+//  * Any sq <= sk: ragged tile edges are masked (rows past sq are never
+//    stored, keys past sk score -1e30), head_dim 64 or 128.
+//  * Key tiles are visited last to first, so the masked tiles come first;
+//    a row whose tile is wholly masked gets P = 0 there.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (skypilot_tpu_torch/ops/_build.py)
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per CTA
-constexpr int kBlockN = 64;   // key rows per tile
-constexpr int kWarps = 4;     // 16 query rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 elements of row padding in smem
+using namespace sm90;
+
+constexpr int kBlockM = 128;  // query rows per CTA (64 per consumer)
+constexpr int kBlockN = 128;  // keys per K/V tile
+constexpr int kStages = 2;    // K/V ring depth
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  CUtensorMap tq, tk, tv;  // boxes of kBlockM (q) and kBlockN (k, v) rows
   __nv_bfloat16* o;
   float* lse;
-  int b, sq, sk, hq, hkv;
-  // Element strides of [b, s, h, d] tensors (d stride is 1).
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
+  int b, sq, sk, hq, hkv, m_blocks;
   long long o_sb, o_ss, o_sh;
   float scale;
   int causal;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 from different rows packed into one 32-bit register
-// (lo = first row, hi = second row).
-__device__ __forceinline__ uint32_t pack_rows(const __nv_bfloat16* lo,
-                                              const __nv_bfloat16* hi) {
-  uint16_t a = *reinterpret_cast<const uint16_t*>(lo);
-  uint16_t b = *reinterpret_cast<const uint16_t*>(hi);
-  return static_cast<uint32_t>(a) | (static_cast<uint32_t>(b) << 16);
-}
-
-// D = A * B + D for one m16n8k16 tile; A row-major 16x16, B 16x8 (k x n).
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy rows [row0, row0 + 64) of one head of a [b, s, h, d] tensor into a
-// padded shared tile, zero-filling rows at or past `rows`.
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
-                                          const __nv_bfloat16* base,
-                                          long long row_stride, int row0,
-                                          int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < kBlockM * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(
-          base + static_cast<long long>(row0 + r) * row_stride + c * 8);
-    }
-    *reinterpret_cast<uint4*>(smem + r * (D + kPad) + c * 8) = val;
-  }
-}
+struct Smem {
+  static constexpr int kQ = kBlockM * D * 2;
+  static constexpr int kKV = kBlockN * D * 2;
+  static constexpr int kBars = 8 * (1 + 4 * kStages);
+  // 1024 bytes of slack for the 1024-byte alignment of the tiles.
+  static constexpr int kBytes = kQ + 2 * kStages * kKV + kBars + 1024;
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBlockM * (D + kPad);
-  __nv_bfloat16* sV = sK + kBlockN * (D + kPad);
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sK = sQ + Smem<D>::kQ;
+  unsigned char* sV = sK + kStages * Smem<D>::kKV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * Smem<D>::kKV);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
 
-  const int m_block = blockIdx.x;
-  const int bh = blockIdx.y;
+  // Heaviest causal query tiles first: block i takes query tile
+  // m_blocks - 1 - i / (b * hq).
+  const int bh_count = p.b * p.hq;
+  const int m_block = p.m_blocks - 1 - static_cast<int>(blockIdx.x) / bh_count;
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
   const int bi = bh / p.hq;
   const int h = bh % p.hq;
   const int hk = h / (p.hq / p.hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;      // row group inside the 16-row mma tile
-  const int tig = lane % 4;    // thread in group
   const int q0 = m_block * kBlockM;
   const int q_start = p.sk - p.sq;
-
-  const __nv_bfloat16* q_base = p.q + bi * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k_base = p.k + bi * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* v_base = p.v + bi * p.v_sb + hk * p.v_sh;
-
-  load_tile<D>(sQ, q_base, p.q_ss, q0, p.sq);
-  __syncthreads();
-
-  // Q fragments for this warp's 16 rows, all of d, kept in registers.
-  uint32_t qa[D / 16][4];
-  {
-    const __nv_bfloat16* r0 = sQ + (warp * 16 + g) * (D + kPad);
-    const __nv_bfloat16* r1 = r0 + 8 * (D + kPad);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + tig * 2;
-      qa[kk][0] = ld_u32(r0 + c);
-      qa[kk][1] = ld_u32(r1 + c);
-      qa[kk][2] = ld_u32(r0 + c + 8);
-      qa[kk][3] = ld_u32(r1 + c + 8);
-    }
-  }
-
-  float acc_o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc_o[j][0] = acc_o[j][1] = acc_o[j][2] = acc_o[j][3] = 0.f;
-  }
-  // Rows g and g + 8 of this warp's 16.
-  float m_i[2] = {kNegInf, kNegInf};
-  float l_i[2] = {0.f, 0.f};
-  const int row_a = q0 + warp * 16 + g;  // query index of fragment rows
-  const int row_b = row_a + 8;
-  const int qpos_a = q_start + row_a;    // absolute key-space position
-  const int qpos_b = q_start + row_b;
-
-  // Key tiles that can contribute: all of them, or (causal) those whose
-  // first key is at or before the tile's last query position.
+  // Key tiles that can contribute: all, or (causal) up to the last row's
+  // position.
   int n_end = p.sk;
-  if (p.causal) {
-    const int last_q = min(q0 + kBlockM, p.sq) - 1;
-    n_end = min(p.sk, q_start + last_q + 1);
-  }
+  if (p.causal) n_end = min(p.sk, q_start + min(q0 + kBlockM, p.sq));
   const int n_tiles = (n_end + kBlockN - 1) / kBlockN;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockN;
-    __syncthreads();  // previous tile fully consumed
-    load_tile<D>(sK, k_base, p.k_ss, k0, p.sk);
-    load_tile<D>(sV, v_base, p.v_ss, k0, p.sk);
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], kConsumers);
+      mbar_init(&v_empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T for 16 rows x 64 keys: 8 n-tiles of 8 keys.
-    float s[kBlockN / 8][4];
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every copy.
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&p.tq);
+      tma_prefetch_map(&p.tk);
+      tma_prefetch_map(&p.tv);
+      mbar_arrive_expect_tx(q_full, Smem<D>::kQ);
+      tma_load_tile<D>(sQ, &p.tq, q_full, kBlockM, h, q0, bi);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int t = n_tiles - 1 - i;
+        const int stage = i % kStages;
+        const uint32_t parity = ((i / kStages) & 1) ^ 1;
+        mbar_wait(&k_empty[stage], parity);
+        mbar_arrive_expect_tx(&k_full[stage], Smem<D>::kKV);
+        tma_load_tile<D>(sK + stage * Smem<D>::kKV, &p.tk, &k_full[stage],
+                         kBlockN, hk, t * kBlockN, bi);
+        mbar_wait(&v_empty[stage], parity);
+        mbar_arrive_expect_tx(&v_full[stage], Smem<D>::kKV);
+        tma_load_tile<D>(sV + stage * Smem<D>::kKV, &p.tv, &v_full[stage],
+                         kBlockN, hk, t * kBlockN, bi);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each.
+    reg_alloc<240>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int tig = lane % 4;
+    const int row_a = q0 + cw * 64 + warp * 16 + g;  // this thread's rows
+    const int row_b = row_a + 8;
+    const int qpos_a = q_start + row_a;  // their key-space positions
+    const int qpos_b = q_start + row_b;
+    const float sl2 = p.scale * kLog2e;
+    // Tiles below n_plain need no mask: every key is before sk and (causal)
+    // at or before the first row's position.
+    int n_plain = p.sk / kBlockN;
+    if (p.causal) n_plain = min(n_plain, (q_start + q0 + 1) / kBlockN);
+
+    float o[D / 2];
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* krow = sK + (j * 8 + g) * (D + kPad);
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_i[2] = {kNegInf, kNegInf};
+    float l_i[2] = {0.f, 0.f};  // this thread's partial row sums
+    float s[kBlockN / 2];
+    uint32_t pa[kBlockN / 16][4];
+
+    // S = Q K^T for the tile in `stage`.
+    auto issue_qk = [&](int stage) {
+      const unsigned char* k_tile = sK + stage * Smem<D>::kKV;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int c = kk * 16 + tig * 2;
-        mma_bf16(s[j], qa[kk], ld_u32(krow + c), ld_u32(krow + c + 8));
+        wgmma_ss(s, desc_k_major(sQ, kBlockM, cw * 64, kk),
+                 desc_k_major(k_tile, kBlockN, 0, kk), kk > 0);
       }
-    }
+    };
+    // O += P V for the tile in `stage`.
+    auto issue_pv = [&](int stage) {
+      const unsigned char* v_tile = sV + stage * Smem<D>::kKV;
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        wgmma_rs(o, pa[kk], desc_mn_major(v_tile, kBlockN, kk), 1);
+      }
+    };
+    // Mask, new row maxima, P = exp(S * scale - m) in place, this tile's
+    // partial row sums; returns the factors that rescale the old O and l.
+    auto softmax = [&](int t, float (&corr)[2], float (&rs)[2]) {
+      if (t >= n_plain) {
+        const int k0 = t * kBlockN;
+#pragma unroll
+        for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + j * 8 + tig * 2 + (e & 1);
+            const int qpos = (e < 2) ? qpos_a : qpos_b;
+            if (key >= p.sk || (p.causal && key > qpos)) s[4 * j + e] = kNegInf;
+          }
+        }
+      }
+      float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      float base[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2_approx((m_i[r] - mx[r]) * sl2);
+        m_i[r] = mx[r];
+        // A row with no visible key so far: its masked scores give P = 0.
+        base[r] = (mx[r] == kNegInf) ? 0.f : mx[r] * sl2;
+        rs[r] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pv = exp2_approx(fmaf(s[4 * j + e], sl2, -base[e >> 1]));
+          s[4 * j + e] = pv;
+          rs[e >> 1] += pv;
+        }
+      }
+    };
 
-    // Scale, mask, and the row maxima of this tile.
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + tig * 2 + (e & 1);
-        const int qpos = (e < 2) ? qpos_a : qpos_b;
-        float x = s[j][e] * p.scale;
-        if (key >= p.sk || (p.causal && key > qpos)) x = kNegInf;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
+    mbar_wait(q_full, 0);
+    // First tile (the last key tile): S, softmax, P.
+    {
+      mbar_wait(&k_full[0], 0);
+      wgmma_fence();
+      issue_qk(0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (tid == 0) mbar_arrive(&k_empty[0]);
+      float corr[2], rs[2];
+      softmax(n_tiles - 1, corr, rs);
+      l_i[0] = rs[0];
+      l_i[1] = rs[1];
+      acc_to_a<kBlockN>(pa, s);
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    float corr[2];
-    float m_new[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m_i[r], mx[r]);
-      corr[r] = __expf(m_i[r] - m_new[r]);
-      m_i[r] = m_new[r];
-    }
-    // P = exp(S - m); per-thread partial row sums (reduced at the end).
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = __expf(s[j][e] - m_new[e >> 1]);
-        s[j][e] = pv;
-        rs[e >> 1] += pv;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * corr[r] + rs[r];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc_o[j][0] *= corr[0];
-      acc_o[j][1] *= corr[0];
-      acc_o[j][2] *= corr[1];
-      acc_o[j][3] *= corr[1];
-    }
-
-    // O += P V. P (cast to bf16, as the TPU kernel casts P to the input
-    // dtype) comes straight from the S accumulators: the C layout of two
-    // neighbouring 8-key n-tiles is the A layout of one 16-key k-step.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* v0 = sV + (kk * 16 + tig * 2) * (D + kPad);
-      const __nv_bfloat16* v1 = v0 + (D + kPad);
-      const __nv_bfloat16* v8 = v0 + 8 * (D + kPad);
-      const __nv_bfloat16* v9 = v8 + (D + kPad);
+    for (int i = 1; i < n_tiles; ++i) {
+      const int stage = i % kStages;
+      const int prev = (i - 1) % kStages;
+      mbar_wait(&k_full[stage], (i / kStages) & 1);
+      wgmma_fence();
+      issue_qk(stage);  // S of tile i ...
+      wgmma_commit();
+      mbar_wait(&v_full[prev], ((i - 1) / kStages) & 1);
+      issue_pv(prev);  // ... while P V of tile i - 1 is in flight
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      if (tid == 0) mbar_arrive(&k_empty[stage]);
+      float corr[2], rs[2];
+      softmax(n_tiles - 1 - i, corr, rs);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      if (tid == 0) mbar_arrive(&v_empty[prev]);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        const int col = j * 8 + g;
-        mma_bf16(acc_o[j], pa, pack_rows(v0 + col, v1 + col),
-                 pack_rows(v8 + col, v9 + col));
+        o[4 * j + 0] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+      l_i[0] = l_i[0] * corr[0] + rs[0];
+      l_i[1] = l_i[1] * corr[1] + rs[1];
+      acc_to_a<kBlockN>(pa, s);
+    }
+    {
+      const int last = n_tiles - 1;
+      mbar_wait(&v_full[last % kStages], (last / kStages) & 1);
+      wgmma_fence();
+      issue_pv(last % kStages);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+
+    // Epilogue: full row sums across the 4 threads of each row, O / l in
+    // bf16, lse = m * scale + log(l).
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+      l_i[r] = fmaxf(l_i[r], 1e-30f);
+    }
+    const float inv_a = 1.f / l_i[0];
+    const float inv_b = 1.f / l_i[1];
+    __nv_bfloat16* o_base = p.o + bi * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + tig * 2;
+      if (row_a < p.sq) {
+        *reinterpret_cast<uint32_t*>(o_base + row_a * p.o_ss + col) =
+            pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+      }
+      if (row_b < p.sq) {
+        *reinterpret_cast<uint32_t*>(o_base + row_b * p.o_ss + col) =
+            pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
       }
     }
-  }
-
-  // Finish: full row sums across the 4 threads of each row group.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-    l_i[r] = fmaxf(l_i[r], 1e-30f);
-  }
-  const float inv_a = 1.f / l_i[0];
-  const float inv_b = 1.f / l_i[1];
-  __nv_bfloat16* o_base = p.o + bi * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + tig * 2;
-    if (row_a < p.sq) {
-      *reinterpret_cast<uint32_t*>(o_base + row_a * p.o_ss + col) =
-          pack_bf16(acc_o[j][0] * inv_a, acc_o[j][1] * inv_a);
+    if (tig == 0) {
+      float* lse_row = p.lse + static_cast<long long>(bh) * p.sq;
+      if (row_a < p.sq) lse_row[row_a] = m_i[0] * p.scale + logf(l_i[0]);
+      if (row_b < p.sq) lse_row[row_b] = m_i[1] * p.scale + logf(l_i[1]);
     }
-    if (row_b < p.sq) {
-      *reinterpret_cast<uint32_t*>(o_base + row_b * p.o_ss + col) =
-          pack_bf16(acc_o[j][2] * inv_b, acc_o[j][3] * inv_b);
-    }
-  }
-  if (tig == 0) {
-    float* lse_row = p.lse + static_cast<long long>(bh) * p.sq;
-    if (row_a < p.sq) lse_row[row_a] = m_i[0] + logf(l_i[0]);
-    if (row_b < p.sq) lse_row[row_b] = m_i[1] + logf(l_i[1]);
   }
 }
 
 template <int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int smem = (kBlockM + 2 * kBlockN) * (D + kPad) *
-                   static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.b * p.hq);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+int launch(Params& p, const void* q, const void* k, const void* v,
+           const long long* qs, const long long* ks, const long long* vs,
+           int device, cudaStream_t stream) {
+  int err = make_tma_map(&p.tq, q, p.b, p.sq, p.hq, D, qs[0], qs[1], qs[2],
+                         kBlockM);
+  if (err == 0) {
+    err = make_tma_map(&p.tk, k, p.b, p.sk, p.hkv, D, ks[0], ks[1], ks[2],
+                       kBlockN);
+  }
+  if (err == 0) {
+    err = make_tma_map(&p.tv, v, p.b, p.sk, p.hkv, D, vs[0], vs[1], vs[2],
+                       kBlockN);
+  }
+  if (err != 0) return err;
+  // The shared-memory opt-in, once per device.
+  static bool ready[64] = {};
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem<D>::kBytes);
+    if (e != cudaSuccess) return e;
+    ready[device] = true;
+  }
+  p.m_blocks = (p.sq + kBlockM - 1) / kBlockM;
+  const long long grid = static_cast<long long>(p.m_blocks) * p.b * p.hq;
+  flash_fwd_kernel<D><<<static_cast<unsigned>(grid), kThreads,
+                        Smem<D>::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -321,25 +359,26 @@ extern "C" int skytpu_flash_fwd_bf16(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = static_cast<float*>(lse);
   p.b = b; p.sq = sq; p.sk = sk; p.hq = hq; p.hkv = hkv;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.scale = scale;
   p.causal = causal;
+  const long long qs[3] = {q_sb, q_ss, q_sh};
+  const long long ks[3] = {k_sb, k_ss, k_sh};
+  const long long vs[3] = {v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return static_cast<int>(launch<64>(p, s));
-  if (d == 128) return static_cast<int>(launch<128>(p, s));
+  if (d == 64) return launch<64>(p, q, k, v, qs, ks, vs, device, s);
+  if (d == 128) return launch<128>(p, q, k, v, qs, ks, vs, device, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Error text for a code returned above (the wrapper raises with it).
 extern "C" const char* skytpu_cuda_error_string(int code) {
+  if (code >= kTmaErrorBase) {
+    return "cuTensorMapEncodeTiled refused a TMA map of an operand "
+           "(CUresult = code - 100000)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -154,19 +154,28 @@ def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
 _flash_lib = None
 
 
+def _bind_error_string(lib: ctypes.CDLL) -> None:
+    lib.skytpu_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.skytpu_cuda_error_string.restype = ctypes.c_char_p
+
+
+def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K1's C interface on a loaded library (``csrc/flash_fwd.cu``
+    of this or another checkout: the interface has not changed)."""
+    fn = lib.skytpu_flash_fwd_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _bind_error_string(lib)
+    return lib
+
+
 def _flash_kernel():
     global _flash_lib
     if _flash_lib is None:
-        lib = _build.load('flash_fwd')
-        fn = lib.skytpu_flash_fwd_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.skytpu_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.skytpu_cuda_error_string.restype = ctypes.c_char_p
-        _flash_lib = lib
+        _flash_lib = bind_fwd(_build.load('flash_fwd'))
     return _flash_lib
 
 
@@ -275,18 +284,21 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 _flash_bwd_lib = None
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K2's C interface on a loaded library, as ``bind_fwd``."""
+    fn = lib.skytpu_flash_bwd_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _bind_error_string(lib)
+    return lib
+
+
 def _flash_bwd_kernel():
     global _flash_bwd_lib
     if _flash_bwd_lib is None:
-        lib = _build.load('flash_bwd')
-        fn = lib.skytpu_flash_bwd_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.skytpu_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.skytpu_cuda_error_string.restype = ctypes.c_char_p
-        _flash_bwd_lib = lib
+        _flash_bwd_lib = bind_bwd(_build.load('flash_bwd'))
     return _flash_bwd_lib
 
 

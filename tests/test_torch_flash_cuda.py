@@ -41,9 +41,11 @@ def _bf16(rng, shape, device):
                             ).to(device=device, dtype=torch.bfloat16)
 
 
-# (b, sq, sk, hq, hkv, d, causal): ragged tile edges, sq < sk, GQA,
-# d 64 and 128, non-causal, and a long causal sequence whose late tiles
-# hold values far below the early ones'.
+# (b, sq, sk, hq, hkv, d, causal): ragged tile edges (one row short of
+# and past the kernels' 128-row tiles, 1000), sq < sk with a prefix that
+# is no tile multiple (193 x 1000), GQA, d 64 and 128, non-causal, and a
+# long causal sequence whose late tiles hold values far below the early
+# ones'.
 CASES = [
     (1, 1, 1, 4, 4, 128, True),
     (2, 77, 77, 8, 2, 128, True),
@@ -51,6 +53,12 @@ CASES = [
     (2, 100, 129, 6, 3, 64, False),
     (1, 130, 130, 32, 8, 128, False),
     (1, 4096, 4096, 4, 2, 128, True),
+    (1, 127, 127, 32, 8, 128, True),
+    (1, 129, 129, 32, 8, 128, True),
+    (1, 1000, 1000, 32, 8, 128, True),
+    (1, 193, 1000, 32, 8, 128, True),
+    (1, 300, 777, 32, 8, 128, False),
+    (1, 200, 333, 16, 8, 64, True),
 ]
 
 
@@ -82,6 +90,40 @@ def test_kernel_reads_strided_inputs(cuda):
         q.contiguous(), k.contiguous(), v.contiguous(), True, 0.125)
     assert tile_rel_err(out, ref_out) <= TILE_RTOL
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+
+
+def test_kernels_read_views_of_a_fused_projection(cuda):
+    """b 2, llama3-8b heads: q, k, v cut from one [b, s, hq + 2 hkv, d]
+    tensor, forward and backward."""
+    rng = np.random.default_rng(4)
+    qkv = _bf16(rng, (2, 300, 48, 128), cuda)
+    q, k, v = qkv[:, :, :32], qkv[:, :, 32:40], qkv[:, :, 40:]
+    dout = _bf16(rng, (2, 300, 32, 128), cuda)
+    scale = 128 ** -0.5
+    out, lse = torch_attention.flash_attention_fwd(q, k, v, True, scale)
+    ref_out, ref_lse = torch_attention.flash_attention_fwd_reference(
+        q, k, v, True, scale)
+    assert tile_rel_err(out, ref_out) <= TILE_RTOL
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    got = torch_attention.flash_attention_bwd(q, k, v, out, lse, dout, True,
+                                              scale)
+    _assert_grads_close(got, torch_attention.flash_attention_bwd_reference(
+        q, k, v, out, lse, dout, True, scale))
+
+
+def test_bwd_kernel_is_deterministic(cuda):
+    """No atomics: the same inputs give the same bits (the train resume
+    compares losses bit for bit)."""
+    rng = np.random.default_rng(6)
+    q = _bf16(rng, (1, 1000, 16, 128), cuda)
+    k, v = (_bf16(rng, (1, 1000, 8, 128), cuda) for _ in range(2))
+    dout = _bf16(rng, (1, 1000, 16, 128), cuda)
+    out, lse = torch_attention.flash_attention_fwd(q, k, v, True, 0.1)
+    first = torch_attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                True, 0.1)
+    again = torch_attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                True, 0.1)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_attention_on_the_card_dispatches_to_the_kernel(cuda):
