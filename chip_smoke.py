@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases build,kernel
     python3 chip_smoke.py --phases device,build,kernel,train
     python3 chip_smoke.py --phases build,breakdown   # where the time goes
+    python3 chip_smoke.py --phases build,kernel,serve_moe,train_moe
     python3 chip_smoke.py --phases build,kernel --parent DIR  # old vs new
 
 Phases, each printing one JSON object per line:
@@ -42,6 +43,21 @@ Phases, each printing one JSON object per line:
           the bf16 replica's streams and the int8 step's logits against
           bf16's from the same state; a contiguous-KV engine against the
           paged one token for token; admit_many against solo admits;
+  serve_moe  the replica at mixtral-8x7b full width, 16 of its 32 layers
+          (random bf16 weights from seed 0, the router rounded to bf16
+          as the JAX replica rounds it, capacity factor 1.25): the serve
+          phase's traffic, K1 launches exactly as the prefills predict;
+          layer 0's dropped fraction per dispatch kind; prefill logits
+          through K1 against the reference attention (and the routing
+          choices that differ); then, on a second engine at capacity
+          factor 4.0 (nothing drops), the engine against the decode_step
+          oracle, speculative on against off, and a repeat;
+  train_moe  the trainer at mixtral-8x7b full width, 4 layers, batch 1 x
+          seq 4096, remat 'full': 3 steps on one fixed batch (aux loss,
+          tokens/s, MFU of the active params, K1/K2 per step and layer),
+          a profiled step, a forward + backward under 'full', 'dots' and
+          'names' from one state, and loss and grads through K1/K2
+          against the reference attention;
   breakdown  (only when asked for) host and device time per dispatch
           kind of the serve phase's engine, with its costliest ops; an
           admit_many of 4 x 512 against 4 solo admits; the int8 step and
@@ -53,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -66,7 +83,8 @@ import urllib.error
 import urllib.request
 from typing import NamedTuple
 
-ALL_PHASES = ('device', 'build', 'kernel', 'train', 'serve', 'serve_modes')
+ALL_PHASES = ('device', 'build', 'kernel', 'train', 'serve', 'serve_modes',
+              'serve_moe', 'train_moe')
 # Run only when named in --phases: a per-dispatch time breakdown.
 EXTRA_PHASES = ('breakdown',)
 KERNELS = ('flash_fwd', 'flash_bwd')
@@ -121,6 +139,43 @@ ADMIT_KV_TOL = 2e-2
 NAMED_POLICIES = ('names', 'names_qkv', 'names_offload')
 GRAD_NORM_RTOL = 1e-3
 POLICY_CALLS = 5  # timed forward + backward calls per policy
+# Mixtral-8x7B at full width (skypilot_tpu/models/mixtral.py:81-85: embed
+# 4096, 32/8 heads, 8 experts top-2, expert mlp 14336, capacity factor
+# 1.25), its depth cut. serve_moe: 32 -> 16 layers (all 32 are 93.4 GB in
+# bf16, over the 80 GB card; 16 are 46.4 GB), the serve phase's geometry
+# and traffic. train_moe: 32 -> 4 layers (6.07 B params: bf16 params,
+# grads and both AdamW moments 48.6 GB), batch 1 x seq 4096 (the per-chip
+# share of examples/managed_job_with_ckpt.yaml's --batch 16 over 16
+# chips), remat 'full' (the preset's), 3 steps on one fixed batch.
+MOE_PRESET = 'mixtral-8x7b'
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 16, 4
+MOE_SERVE_ARGV = ['--model', 'mixtral', '--preset', MOE_PRESET,
+                  '--batch-slots', '8', '--max-len', '4096', '--device',
+                  'cuda', '--seed', '0']
+MOE_TRAIN_B, MOE_TRAIN_SEQ = 1, 4096
+MOE_TRAIN_ARGV = ['--model', 'mixtral', '--preset', MOE_PRESET, '--batch',
+                  str(MOE_TRAIN_B), '--seq', str(MOE_TRAIN_SEQ), '--remat',
+                  'full', '--device', 'cuda', '--log-every', '1']
+# The equivalence gates run on a second engine over the same weights at
+# capacity factor 4.0 >= E/k: no assignment can drop, so a token's output
+# does not depend on which tokens share its dispatch (at 1.25 it does, in
+# the JAX package too). Teacher forced for MOE_ORACLE_TOKENS positions:
+# the greedy tokens agree, or part at a near tie (the reference's top-2
+# margin below the largest logit difference). Where the token's experts
+# are the same in every layer, the logits are within LOGIT_RTOL relative
+# L2. Where bf16 noise flipped a router near tie (the first card run,
+# PERF.md: 7 of 16 oracle positions, on random weights), the token's
+# later layers run other experts and its logits may differ by more; such
+# positions are printed with their first flip, and may be at most
+# MOE_ROUTED_OTHERWISE_MAX of all.
+MOE_EQUIV_CF = 4.0
+MOE_ROUTED_OTHERWISE_MAX = 0.75
+MOE_ORACLE_TOKENS = 16
+MOE_MONOLITHIC = 5  # the serve traffic's monolithic prefills (K1 each)
+
+
+def _device_of(argv):
+    return argv[argv.index('--device') + 1]
 
 
 def emit(obj) -> None:
@@ -259,6 +314,17 @@ def phase_kernel(ctx) -> None:
     if not rec['ok']:
         failures.append(rec)
     del q, k, v
+    # K1 at the train_moe shape (mixtral-8x7b heads, batch 1 x 4096).
+    q, k, v = _qkv(gen, MOE_TRAIN_B, MOE_TRAIN_SEQ, MOE_TRAIN_SEQ, HQ, HKV,
+                   HEAD_DIM)
+    rec = check_flash_fwd(q, k, v, True, _fwd_by_kv_head)
+    rec.update(time_flash(ctx, q, k, v, HEAD_DIM ** -0.5,
+                          plain=_fwd_by_kv_head))
+    emit(rec)
+    worst = max(worst, rec['out_max_abs_err'])
+    if not rec['ok']:
+        failures.append(rec)
+    del q, k, v
     ctx['flash'] = {'max_abs_err': worst}
     failures += check_flash_bwd(ctx, gen)
     if failures:
@@ -291,14 +357,15 @@ FWD_CASES = [Case(1, s, s, True, HEAD_DIM, HQ, HKV)
     Case(2, 300, 300, True, HEAD_DIM, HQ, HKV, fused=True),
     Case(len(MODES_WAVE), MODES_BUCKET, MODES_BUCKET, True, HEAD_DIM, HQ,
          HKV)]
-# K2 at llama-1b (16/8) and llama3-8b (32/8) heads, up to the train
-# phase's 8192.
+# K2 at llama-1b (16/8) and llama3-8b / mixtral-8x7b (32/8) heads, up to
+# the train phase's 8192 (4096: the train_moe shape).
 BWD_CASES = [Case(1, sq, sk, causal, HEAD_DIM, hq, hkv)
              for hq, hkv in ((TRAIN_HQ, TRAIN_HKV), (HQ, HKV))
              for sq, sk, causal in ((127, 127, True), (129, 129, True),
                                     (1000, 1000, True), (2048, 2048, True),
-                                    (8192, 8192, True), (193, 1000, True),
-                                    (256, 1024, True), (300, 777, False))] + [
+                                    (4096, 4096, True), (8192, 8192, True),
+                                    (193, 1000, True), (256, 1024, True),
+                                    (300, 777, False))] + [
     Case(1, 200, 333, True, 64, TRAIN_HQ, TRAIN_HKV),
     Case(2, 300, 300, True, HEAD_DIM, HQ, HKV, fused=True)]
 
@@ -419,11 +486,15 @@ def check_flash_bwd(ctx, gen):
             failures.append(rec)
         del q, k, v, dout, out, lse, got, want
     ctx['flash_bwd'] = {'max_abs_err': worst}
-    timing = time_flash_bwd(ctx)
-    ctx['flash_bwd_timing'] = timing
-    emit({'phase': 'kernel', 'kernel': 'flash_bwd', 'b': TRAIN_B,
-          'sq': TRAIN_SEQ, 'sk': TRAIN_SEQ, 'hq': TRAIN_HQ,
-          'hkv': TRAIN_HKV, 'head_dim': HEAD_DIM, 'causal': True, **timing})
+    # Timed at the train phase's shape and at train_moe's.
+    for key, (b, s, hq, hkv) in (
+            ('flash_bwd_timing', (TRAIN_B, TRAIN_SEQ, TRAIN_HQ, TRAIN_HKV)),
+            ('flash_bwd_timing_moe', (MOE_TRAIN_B, MOE_TRAIN_SEQ, HQ, HKV))):
+        timing = time_flash_bwd(ctx, b, s, hq, hkv)
+        ctx[key] = timing
+        emit({'phase': 'kernel', 'kernel': 'flash_bwd', 'b': b, 'sq': s,
+              'sk': s, 'hq': hq, 'hkv': hkv, 'head_dim': HEAD_DIM,
+              'causal': True, **timing})
     return failures
 
 
@@ -472,18 +543,19 @@ def _parent_ms(ctx, fn, iters):
         return time_device(fn, iters)[0]
 
 
-def time_flash_bwd(ctx):
-    """K2 / plain / library at the train shape (b 4, 8192, 16/8 heads,
-    causal), inputs rotating over two copies (each more bytes than L2).
-    The library call is PyTorch's flash-attention backward
+def time_flash_bwd(ctx, b, s, hq, hkv):
+    """K2 / plain / library at one causal shape (the train phase's: b 4,
+    8192, 16/8 heads; train_moe's: b 1, 4096, 32/8), inputs rotating over
+    two copies (each more bytes than L2). The library call is PyTorch's
+    flash-attention backward
     (aten._scaled_dot_product_flash_attention_backward) on KV repeated to
-    16 heads, as it takes no GQA: it returns per-query-head dK/dV, which
+    hq heads, as it takes no GQA: it returns per-query-head dK/dV, which
     K2 sums over the group."""
     import torch
     from skypilot_tpu_torch.ops import attention as attn
     gen = torch.Generator(device='cuda')
     gen.manual_seed(99)
-    b, s, hq, hkv, d = TRAIN_B, TRAIN_SEQ, TRAIN_HQ, TRAIN_HKV, HEAD_DIM
+    d = HEAD_DIM
     scale = d ** -0.5
     sets = []
     for _ in range(2):
@@ -1344,6 +1416,516 @@ def phase_serve_modes(ctx) -> None:
         raise RuntimeError(f'serve_modes: {faults}')
 
 
+@contextlib.contextmanager
+def _moe_depth(layers: int):
+    """The MOE_PRESET config with its depth cut to ``layers``, for the
+    entry points (which read the preset by name) inside the block."""
+    import dataclasses
+    from skypilot_tpu_torch.models import mixtral
+    full = mixtral.PRESETS[MOE_PRESET]
+    mixtral.PRESETS[MOE_PRESET] = dataclasses.replace(full,
+                                                      num_layers=layers)
+    try:
+        yield mixtral.PRESETS[MOE_PRESET]
+    finally:
+        mixtral.PRESETS[MOE_PRESET] = full
+
+
+@contextlib.contextmanager
+def _routing_log(choices: bool = False):
+    """Every ``ops.moe.top_k_routing`` call inside the block, in order:
+    tokens N, capacity C, aux loss and dropped fraction (device scalars);
+    with ``choices``, each token's experts [N, k] as the router picks
+    them (ties to the lower index)."""
+    import torch
+    from skypilot_tpu_torch.ops import moe
+    plain = moe.top_k_routing
+    log = []
+
+    def recorded(logits, top_k, capacity):
+        out = plain(logits, top_k, capacity)
+        entry = {'n': logits.shape[0], 'capacity': capacity,
+                 'aux_loss': out[2]['aux_loss'].detach(),
+                 'dropped': out[2]['dropped_frac']}
+        if choices:
+            entry['logits'] = logits.detach().float()
+            probs = torch.softmax(entry['logits'], dim=-1)
+            entry['choice'] = torch.sort(probs, dim=-1, descending=True,
+                                         stable=True).indices[:, :top_k]
+        log.append(entry)
+        return out
+    moe.top_k_routing = recorded
+    try:
+        yield log
+    finally:
+        moe.top_k_routing = plain
+
+
+def _first_flip(ref_log, ref_row: int, got_log, got_row: int):
+    """The first layer where one token's experts differ between two runs
+    (logs of one dispatch each, the token at a row of each): the
+    reference router's smallest gap among its top k + 1 logits there and
+    the largest difference between the two runs' router logits for the
+    token (two experts swap only if their gap is below twice that); None
+    when they never differ."""
+    import torch
+    for layer, (a, b) in enumerate(zip(ref_log, got_log)):
+        if torch.equal(a['choice'][ref_row], b['choice'][got_row]):
+            continue
+        ref, got = a['logits'][ref_row], b['logits'][got_row]
+        top = ref.sort(descending=True).values[:a['choice'].shape[1] + 1]
+        return {'layer': layer,
+                'router_gap': (top[:-1] - top[1:]).min().item(),
+                'router_max_abs_diff': (got - ref).abs().max().item()}
+    return None
+
+
+def _routing_differs(log_a, log_b) -> int:
+    """(token, choice) pairs whose expert differs between two runs of the
+    same dispatches."""
+    return sum(int((a['choice'] != b['choice']).sum())
+               for a, b in zip(log_a, log_b))
+
+
+def _drop_record(log):
+    import torch
+    return {'tokens': log[0]['n'], 'capacity': log[0]['capacity'],
+            'dropped_frac_layer0': float(log[0]['dropped']),
+            'dropped_frac_mean': float(torch.stack(
+                [e['dropped'] for e in log]).mean())}
+
+
+def _agree(ref, got, ref_at, got_at):
+    """One teacher-forced position: logits [V] of the reference and of the
+    path under test, and (routing log, row) of the token in each."""
+    top2 = ref.topk(2).values
+    return {'same': int(ref.argmax()) == int(got.argmax()),
+            'margin': (top2[0] - top2[1]).item(),
+            'max_abs_diff': (got - ref).abs().max().item(),
+            'rel_l2': _rel_l2(got, ref),
+            'first_flip': _first_flip(*ref_at, *got_at)}
+
+
+def _agree_summary(recs):
+    """(record, ok) of a list of ``_agree`` positions (MOE_EQUIV_CF)."""
+    parted = [r for r in recs if not r['same']]
+    flipped = [r for r in recs if r['first_flip']]
+    same_route = [r for r in recs if not r['first_flip']]
+    ok = (all(r['margin'] <= r['max_abs_diff'] for r in parted)
+          and all(r['rel_l2'] <= LOGIT_RTOL for r in same_route)
+          and len(flipped) <= MOE_ROUTED_OTHERWISE_MAX * len(recs))
+    return {'positions': len(recs), 'same_tokens': len(recs) - len(parted),
+            'parted': parted,
+            'rel_l2_max_same_routing': max(
+                [r['rel_l2'] for r in same_route], default=None),
+            'rel_l2_max': max(r['rel_l2'] for r in recs),
+            'positions_routed_otherwise': len(flipped),
+            'first_flips': [r['first_flip'] for r in flipped],
+            'logits_rtol': LOGIT_RTOL, 'ok': ok}, ok
+
+
+def _moe_equivalence(eng, model, params, prompt, n):
+    """The equivalence gates on ``eng`` (capacity factor MOE_EQUIV_CF),
+    one prompt in slot 0, ``n`` positions: the engine's greedy stream
+    (its prefill, then plain steps) against the ``decode_step`` oracle,
+    teacher forced along it; verify steps drafting that stream against
+    the plain steps' logits (speculative on = off); the free-running
+    speculative stream twice (a repeat reproduces)."""
+    import torch
+    from skypilot_tpu_torch.models import decode
+    c, dev, k_spec = eng.config, eng.device, eng.spec_tokens
+    bucket = decode.prefill_bucket(len(prompt), eng.max_len)
+    padded = list(prompt) + [0] * (bucket - len(prompt))
+    last = len(prompt) - 1
+
+    def admitted():
+        eng.reset_kv()
+        state = eng.init_state()
+        with _routing_log(choices=True) as log:
+            k, v, logits = eng.prefill(params, padded, len(prompt))
+        first = int(logits.argmax())
+        state = eng.insert(state, k, v, len(prompt), first, 0)
+        return state, logits, first, (log, last)
+
+    # The plain stream and the oracle, teacher forced along the former.
+    state, logits, first, routes = admitted()
+    toks, plain = [first], [(logits, routes)]
+    shape = (c.num_layers, 1, len(prompt) + n, c.num_kv_heads, c.head_dim)
+    cache = {'k': torch.zeros(shape, dtype=c.dtype, device=dev),
+             'v': torch.zeros(shape, dtype=c.dtype, device=dev),
+             'length': 0}
+    with _routing_log(choices=True) as log:
+        logits, cache = model.decode_step(
+            params, cache, torch.tensor([list(prompt)], device=dev))
+    oracle = [(logits[0], (log, last))]
+    for _ in range(1, n):
+        with _routing_log(choices=True) as log:
+            logits = eng._step_logits(params, state)[0]
+        plain.append((logits, (log, 0)))
+        with _routing_log(choices=True) as log:
+            ref, cache = model.decode_step(
+                params, cache, torch.tensor([[toks[-1]]], device=dev))
+        oracle.append((ref[0], (log, 0)))
+        toks.append(int(logits.argmax()))
+        state.lengths[0] += 1
+        state.last_tokens[0] = toks[-1]
+    oracle_rec, oracle_ok = _agree_summary(
+        [_agree(o[0], p[0], o[1], p[1]) for o, p in zip(oracle, plain)])
+
+    # Verify steps drafting the plain stream: rows 0..K of a verify from
+    # position ``pos`` hold the logits the plain steps gave at pos..pos+K.
+    state = admitted()[0]
+    spec, pos = [], 1
+    while pos < n:
+        draft = torch.zeros((eng.batch_slots, k_spec), dtype=torch.long,
+                            device=dev)
+        draft[0] = torch.tensor(toks[pos:pos + k_spec], device=dev)
+        with _routing_log(choices=True) as log:
+            logits = eng._verify_logits(params, state, draft)[0]
+        for j in range(min(k_spec + 1, n - pos)):
+            spec.append(_agree(plain[pos + j][0], logits[j],
+                               plain[pos + j][1], (log, j)))
+        state.lengths[0] += k_spec + 1
+        state.last_tokens[0] = toks[pos + k_spec]
+        pos += k_spec + 1
+    spec_rec, spec_ok = _agree_summary(spec)
+
+    def spec_stream():
+        state, _, first, _ = admitted()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        out, hist = [first], list(prompt) + [first]
+        while len(out) < n:
+            draft = [decode.draft_tokens(hist, k_spec)] + \
+                [[0] * k_spec] * (eng.batch_slots - 1)
+            state, emitted, acc, gen = eng.step_verify(params, state, gen,
+                                                       draft)
+            new = emitted[0, :int(acc[0]) + 1].tolist()
+            out += new
+            hist += new
+        return out[:n]
+
+    stream, again = spec_stream(), spec_stream()
+    return {'capacity_factor': c.capacity_factor, 'prompt_tokens':
+            len(prompt), 'positions': n, 'oracle': oracle_rec,
+            'spec_vs_plain': spec_rec, 'plain_stream': toks,
+            'spec_stream_equals_plain': stream == toks,
+            'repeat_equal': stream == again}, \
+        oracle_ok and spec_ok and stream == again
+
+
+def phase_serve_moe(ctx) -> None:
+    """mixtral-8x7b at full width (16 of its 32 layers) through the
+    replica's own entry points at the preset's capacity factor 1.25: the
+    serve phase's traffic over HTTP. Then, on the same weights: layer 0's
+    dropped fraction for each dispatch kind, the prefill logits through
+    K1 against the same forward with the reference attention, and the
+    equivalence gates on a second engine at MOE_EQUIV_CF."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.models import decode, mixtral
+    from skypilot_tpu_torch.ops import attention as attn
+    from skypilot_tpu_torch.serve import generation_server as gs
+    with _moe_depth(MOE_SERVE_LAYERS):
+        t0 = time.perf_counter()
+        sched = gs.build_scheduler(gs.build_parser().parse_args(
+            MOE_SERVE_ARGV))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    cfg, params, eng = sched.config, sched.params, sched.engine
+    layers = cfg.num_layers
+    faults = []
+    router = params['layers']['router']
+    if router.dtype != torch.float32 or not torch.equal(
+            router, router.to(cfg.dtype).float()):
+        faults.append('the router is not its bf16 rounding upcast to f32')
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    p100, p600, p1500, p50 = prompt(100), prompt(600), prompt(1500), \
+        prompt(50)
+    shared = p1500[:1024] + prompt(176)
+    n_new = 32
+
+    def body(tokens, **kw):
+        return dict(tokens=tokens, max_tokens=n_new, temperature=0.0, **kw)
+
+    with _replica(sched) as (base, warm_s):
+        attn.reset_launch_counts()
+        t_run = time.perf_counter()
+        # As the serve phase: three prefill buckets and a stream, then a
+        # prefix hit (no K1: the chunk attends through the pool) and a
+        # repeat of the streamed prompt.
+        wave1 = _run_wave(base, [body(p100), body(p600), body(p1500),
+                                 body(p50, stream=True)])
+        wave2 = _run_wave(base, [body(shared), body(p50)])
+        run_s = time.perf_counter() - t_run
+        launches = dict(attn.LAUNCHES)
+        stats = json.loads(_get(base, '/stats'))
+    replies = wave1 + wave2
+    for i, (status, reply) in enumerate(replies):
+        toks = reply['tokens']
+        if status != 200 or reply.get('error') or len(toks) != n_new \
+                or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise RuntimeError(f'bad reply {i}: {status} {reply}')
+    want_launches = {'flash_fwd': MOE_MONOLITHIC * layers, 'flash_bwd': 0}
+    if launches != want_launches:
+        faults.append(f'the traffic launched {launches}, the prefills '
+                      f'predict {want_launches}')
+    if not stats.get('prefix_hit_tokens'):
+        faults.append('no prefix-cache hit')
+    ctx['moe_serve_launches'] = launches
+    rec = {'phase': 'serve_moe', 'preset': MOE_PRESET, 'layers': layers,
+           'params': cfg.num_params, 'active_params': cfg.active_params,
+           'capacity_factor': cfg.capacity_factor,
+           'batch_slots': eng.batch_slots, 'max_len': eng.max_len,
+           'kv_block': eng.kv_block, 'spec_tokens': eng.spec_tokens,
+           'init_s': init_s, 'warm_s': warm_s, 'requests': len(replies),
+           'tokens_out': sum(len(r['tokens']) for _, r in replies),
+           'run_s': run_s, 'ttft_ms': sorted(r['ttft_ms']
+                                             for _, r in replies),
+           'launches': launches, 'launches_want': want_launches,
+           'prefix_hit_tokens': stats['prefix_hit_tokens'],
+           # At 1.25 a reply depends on what shared its dispatches.
+           'repeat_equal_ungated': wave2[1][1]['tokens']
+           == wave1[3][1]['tokens']}
+    rec['tokens_per_s'] = rec['tokens_out'] / run_s
+
+    # Layer 0's dropped fraction per dispatch kind, on a state of its own:
+    # a 1536 prefill into slot 0, a 600-token prompt in two chunks into
+    # slot 1, a plain step and a K-4 verify step over the 8 slots.
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(0)
+    k_spec = eng.spec_tokens
+    drops = {}
+    with torch.no_grad():
+        eng.reset_kv()
+        state = eng.init_state()
+        with _routing_log() as log:
+            state, _, gen = eng.admit(params, state, p1500 + [0] * 36, 1500,
+                                      0, gen)
+        drops['prefill'] = _drop_record(log)
+        with _routing_log() as log:
+            state = eng.prefill_chunk(params, state, p600[:512], 0, 1)
+        drops['chunk'] = _drop_record(log)
+        with _routing_log() as log:
+            state, _, gen = eng.prefill_chunk_final(
+                params, state, p600[512:] + [0] * 40, 512, 1, 600, gen)
+        drops['chunk_final'] = _drop_record(log)
+        with _routing_log() as log:
+            state, _, gen = eng.step(params, state, gen)
+        drops['step'] = _drop_record(log)
+        draft = [decode.draft_tokens(p1500, k_spec),
+                 decode.draft_tokens(p600, k_spec)] + \
+            [[0] * k_spec] * (eng.batch_slots - 2)
+        with _routing_log() as log:
+            eng.step_verify(params, state, gen, draft)
+        drops['verify'] = _drop_record(log)
+        del state
+        rec['dropped'] = drops
+
+        # Prefill logits through K1 against the same forward (the same
+        # 128 padded rows, so the same dispatch) with reference attention.
+        padded = p100 + [0] * 28
+        with _routing_log(choices=True) as log_k:
+            _, _, logits = eng.prefill(params, padded, len(p100))
+        with _routing_log(choices=True) as log_r:
+            ref = eng.model.apply(params, torch.tensor([padded],
+                                                       device=eng.device),
+                                  force_impl='reference')[0, len(p100) - 1]
+        rel = _rel_l2(logits, ref)
+        rec.update({'logits_rel_l2_err': rel, 'logits_rtol': LOGIT_RTOL,
+                    'logits_argmax_same': bool(logits.argmax()
+                                               == ref.argmax()),
+                    'routing_choices_differ': _routing_differs(log_k, log_r),
+                    'routing_choices': layers * len(padded) * cfg.top_k,
+                    'logits_token_first_flip': _first_flip(
+                        log_r, len(p100) - 1, log_k, len(p100) - 1)})
+        if not (rel <= LOGIT_RTOL and rec['logits_argmax_same']
+                and bool(torch.isfinite(logits).all())):
+            faults.append(f'prefill logits off the reference: rel {rel}')
+
+        # The equivalence gates at MOE_EQUIV_CF on the same weights.
+        geometry = dict(batch_slots=eng.batch_slots, max_len=eng.max_len,
+                        kv_block=eng.kv_block, spec_tokens=eng.spec_tokens,
+                        device=eng.device)
+        del sched, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg4 = dataclasses.replace(cfg, capacity_factor=MOE_EQUIV_CF)
+        model4 = mixtral.MixtralModel(cfg4, device='meta')
+        eng4 = decode.DecodeEngine(cfg4, model=model4, **geometry)
+        equiv, ok = _moe_equivalence(eng4, model4, params, p100,
+                                     MOE_ORACLE_TOKENS)
+        rec['equivalence'] = equiv
+        if not ok:
+            faults.append('equivalence gates at capacity factor '
+                          f'{MOE_EQUIV_CF}')
+        del eng4
+    rec['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    rec['card'] = ctx['smi']
+    emit(rec)
+    if faults:
+        raise RuntimeError(f'serve_moe: {faults}')
+
+
+def phase_train_moe(ctx) -> None:
+    """mixtral-8x7b at full width (4 of its 32 layers) through
+    ``train.run.main``: 3 full-remat steps on one fixed batch (seed 7),
+    with the aux loss, tokens/s and MFU (active params) per step and the
+    K1/K2 launches per step; a profiled step; one forward + backward each
+    under 'full', 'dots' and 'names' from the same state; loss and grads
+    through K1/K2 against the reference attention."""
+    import dataclasses
+    import torch
+    from skypilot_tpu_torch.models import mixtral
+    from skypilot_tpu_torch.ops import attention as attn
+    from skypilot_tpu_torch.train import run
+    from skypilot_tpu_torch.train.step import (Trainer, cross_entropy_loss,
+                                               get_leaf, global_norm,
+                                               leaf_names)
+    faults = []
+    with _moe_depth(MOE_TRAIN_LAYERS) as cfg:
+        layers = cfg.num_layers
+        gen = torch.Generator(device=_device_of(MOE_TRAIN_ARGV))
+        gen.manual_seed(7)
+        fixed = torch.randint(0, cfg.vocab_size, (MOE_TRAIN_B,
+                                                  MOE_TRAIN_SEQ),
+                              device=gen.device, generator=gen)
+        batch = {'tokens': fixed, 'targets': torch.roll(fixed, -1, dims=1)}
+        attn.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _routing_log() as log:
+            res = run.main(MOE_TRAIN_ARGV + ['--steps', '3'],
+                           batch_fn=lambda step: fixed)
+        run_s = time.perf_counter() - t0
+    launches = dict(attn.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = res['log']
+    losses = [r['loss'] for r in steps]
+    if len(losses) != 3 or not all(map(math.isfinite, losses)) \
+            or not losses[2] < losses[0]:
+        faults.append(f'losses not finite and falling: {losses}')
+    # 'full': per step K1 runs in the forward and again in the backward's
+    # recompute, K2 once, in every layer.
+    want = {'flash_fwd': 3 * 2 * layers, 'flash_bwd': 3 * layers}
+    if launches != want:
+        faults.append(f'3 steps launched {launches}, want {want}')
+    per_step = len(log) // 3  # forward + recompute, layer by layer
+    aux = [float(torch.stack([e['aux_loss']
+                              for e in log[i * per_step:
+                                           i * per_step + layers]]).mean())
+           for i in range(3)]
+    dropped = [float(torch.stack([e['dropped']
+                                  for e in log[i * per_step:
+                                               i * per_step + layers]])
+                     .mean()) for i in range(3)]
+    trainer, state = res['trainer'], res['state']
+    step = trainer.step_fn()
+    _, step_ms = _wall_ms(lambda: step(state, batch), 1)
+    prof = _profile_calls(lambda: step(state, batch), 1, top=15, groups={
+        'expert_bmm': ('aten::bmm',),
+        'dense_mm': ('aten::mm', 'aten::addmm'),
+        'dispatch_gather': ('aten::index', 'aten::gather', 'aten::sort',
+                            'aten::cumsum', 'aten::one_hot',
+                            'aten::scatter'),
+        'optimizer': ('aten::_foreach', 'Optimizer')})
+    tokens = MOE_TRAIN_B * MOE_TRAIN_SEQ
+    flops = cfg.train_flops_per_token(MOE_TRAIN_SEQ) * tokens
+    rec = {'phase': 'train_moe', 'preset': MOE_PRESET, 'layers': layers,
+           'params': cfg.num_params, 'active_params': cfg.active_params,
+           'batch': MOE_TRAIN_B, 'seq': MOE_TRAIN_SEQ, 'remat': 'full',
+           'capacity_factor': cfg.capacity_factor, 'losses': losses,
+           'aux_losses': aux, 'dropped_frac': dropped,
+           'grad_norms': [r['grad_norm'] for r in steps],
+           'tokens_per_s_by_step': [r['tokens_per_s'] for r in steps],
+           'mfu_by_step': [r['mfu'] for r in steps],
+           'logged_step_s': [r['seconds'] for r in steps], 'run_s': run_s,
+           'step_ms': step_ms, 'tokens_per_s': tokens / step_ms * 1e3,
+           'mfu': flops / step_ms / 1e-3 / ctx['peak_flops'],
+           'peak_mem_gb': peak_gb, 'launches': launches,
+           'launches_per_step': {k: v // 3 for k, v in launches.items()},
+           'device_busy_ms': prof['busy_ms'],
+           'port_kernels_ms': prof['port_kernels_ms'],
+           'group_ms': prof['group_ms'], 'device_kernels': prof['kernels'],
+           'top_ops': prof['top_ops']}
+
+    # One forward + backward under each policy from the same state.
+    named = {}
+    for policy in ('full', 'dots', 'names'):
+        tr = Trainer(mixtral.MixtralModel(dataclasses.replace(
+            cfg, remat=True, remat_policy=policy), device='meta'))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        attn.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = tr.grads(state.params, batch)
+        norm = global_norm(grads).item()
+        named[policy] = {'loss': loss.item(), 'grad_norm': norm,
+                         'fwd_bwd_s': time.perf_counter() - t0,
+                         'peak_mem_gb':
+                         torch.cuda.max_memory_allocated() / 1e9,
+                         'launches': dict(attn.LAUNCHES)}
+        del grads
+    rec['policies'] = named
+    one = {'flash_fwd': layers, 'flash_bwd': layers}
+    for policy in ('dots', 'names'):
+        r = named[policy]
+        if (r['loss'] != named['full']['loss']
+                or abs(r['grad_norm'] - named['full']['grad_norm'])
+                > GRAD_NORM_RTOL * named['full']['grad_norm']
+                or r['launches'] != one):
+            faults.append(f'remat {policy} off full: {named}')
+    ctx['moe_train_launches'] = {
+        k: n + sum(r['launches'][k] for r in named.values())
+        for k, n in launches.items()}
+
+    # Loss (with the aux term) and grads through K1/K2 against the
+    # reference attention, on the same batch and params. The AdamW
+    # moments are dropped first: nothing past here steps.
+    state.opt_state.state.clear()
+    model, params = trainer.model, state.params
+    names = leaf_names(params)
+    leaves = [get_leaf(params, n) for n in names]
+    out, logs = {}, {}
+    for impl in (None, 'reference'):
+        with _routing_log(choices=True) as log:
+            logits, aux_loss = model.apply_with_aux(params, fixed,
+                                                    force_impl=impl)
+            loss = cross_entropy_loss(logits, batch['targets']) \
+                + model.aux_loss_weight * aux_loss
+            del logits
+            out[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+        logs[impl] = log[:layers]
+        del loss
+    loss_rel = abs(out[None][0] - out['reference'][0]) / abs(
+        out['reference'][0])
+    grad_rel = {n: _rel_l2(g, w) for n, g, w in
+                zip(names, out[None][1], out['reference'][1])}
+    gate_ok = (loss_rel <= GATE_LOSS_RTOL
+               and max(grad_rel.values()) <= GATE_GRAD_RTOL)
+    rec['gate'] = {'tokens': tokens, 'loss_kernel': out[None][0],
+                   'loss_reference': out['reference'][0],
+                   'loss_rel_err': loss_rel, 'loss_rtol': GATE_LOSS_RTOL,
+                   'grad_rel_l2': grad_rel, 'grad_rtol': GATE_GRAD_RTOL,
+                   'routing_choices_differ': _routing_differs(
+                       logs[None], logs['reference']),
+                   'routing_choices': layers * tokens * cfg.top_k,
+                   'ok': gate_ok}
+    del out, leaves, params, model, state, trainer, res, step
+    if not gate_ok:
+        faults.append('kernel-path loss/grads off the reference')
+    rec['card'] = ctx['smi']
+    emit(rec)
+    if faults:
+        raise RuntimeError(f'train_moe: {faults}')
+
+
 def _device_us(evt) -> float:
     """An averaged profiler event's self device time in microseconds (the
     attribute was renamed from cuda_* to device_* across torch versions)."""
@@ -1354,10 +1936,12 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile_calls(fn, reps: int, top: int = 10):
+def _profile_calls(fn, reps: int, top: int = 10, groups=None):
     """torch.profiler over ``reps`` calls of ``fn``: per call, the device
     busy ms (the sum of its kernels' times), the kernel count, and the
-    host-side ops whose kernels take the most device time (ms per call).
+    host-side ops whose kernels take the most device time (ms per call);
+    with ``groups`` ({name: op-name prefixes}), the device ms of each
+    group's ops.
     A kernel's time is counted once as a kernel event and once more as
     the self device time of the op that launched it, so the two are
     summed apart."""
@@ -1381,12 +1965,18 @@ def _profile_calls(fn, reps: int, top: int = 10):
     own = {name: sum(_device_us(e) for e in kernels
                      if name in e.key) / reps / 1e3
            for name in attn.LAUNCHES}
-    return {
+    out = {
         'busy_ms': sum(_device_us(e) for e in kernels) / reps / 1e3,
         'kernels': sum(e.count for e in kernels) // reps,
         'port_kernels_ms': own,
         'top_ops': [{'op': e.key[:60], 'ms': _device_us(e) / reps / 1e3,
                      'calls': e.count // reps} for e in ops[:top]]}
+    if groups:
+        out['group_ms'] = {
+            name: sum(_device_us(e) for e in ops
+                      if e.key.startswith(prefixes)) / reps / 1e3
+            for name, prefixes in groups.items()}
+    return out
 
 
 def _wall_ms(fn, reps: int):
@@ -1520,18 +2110,26 @@ def phase_breakdown(ctx) -> None:
 def kernels_line(ctx):
     """K1 timed at the serve path's largest prefill (1536, llama3-8b
     heads), K2 at the train shape; launches summed over the serve,
-    serve_modes and train runs (each read from counts zeroed just before
-    it). Every time is device time (``time_device``)."""
+    serve_modes, train, serve_moe and train_moe runs (each read from
+    counts zeroed just before it), and listed by phase. Every time is
+    device time (``time_device``)."""
     fwd = ctx['flash_timing'][(1, 1536, HQ)]
     bwd = ctx['flash_bwd_timing']
-    train = ctx['train_launches']
-    modes = ctx['modes_launches']
+    by_phase = {'serve': {'flash_fwd': ctx['flash_launches'],
+                          'flash_bwd': 0},
+                'serve_modes': ctx['modes_launches'],
+                'train': ctx['train_launches'],
+                'serve_moe': ctx['moe_serve_launches'],
+                'train_moe': ctx['moe_train_launches']}
+
+    def launches(name):
+        return {phase: n[name] for phase, n in by_phase.items()}
     return [{
         'name': 'flash_fwd', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
         'replaces': 'skypilot_tpu/ops/attention.py:121',
-        'launches': (ctx['flash_launches'] + modes['flash_fwd']
-                     + train['flash_fwd']),
+        'launches': sum(launches('flash_fwd').values()),
+        'launches_by_phase': launches('flash_fwd'),
         'max_abs_err': ctx['flash']['max_abs_err'],
         'ms': fwd['kernel_ms'], 'plain_ms': fwd['plain_ms'],
         'bound_ms': fwd['bound_ms'], 'bound_by': fwd['bound_by'],
@@ -1540,7 +2138,8 @@ def kernels_line(ctx):
         'name': 'flash_bwd', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
         'replaces': 'skypilot_tpu/ops/attention.py:171',
-        'launches': train['flash_bwd'],
+        'launches': sum(launches('flash_bwd').values()),
+        'launches_by_phase': launches('flash_bwd'),
         'max_abs_err': ctx['flash_bwd']['max_abs_err'],
         'ms': bwd['kernel_ms'], 'plain_ms': bwd['plain_ms'],
         'bound_ms': bwd['bound_ms'], 'bound_by': bwd['bound_by'],
@@ -1581,15 +2180,20 @@ def main() -> int:
     runners = {'build': phase_build, 'kernel': phase_kernel,
                'train': phase_train, 'serve': phase_serve,
                'serve_modes': phase_serve_modes,
+               'serve_moe': phase_serve_moe, 'train_moe': phase_train_moe,
                'breakdown': phase_breakdown}
     for phase in phases:
         if phase == 'device':
             continue
+        # Each phase starts from the memory the previous one freed, and
+        # its peak is its own.
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         runners[phase](ctx)
-        torch.cuda.empty_cache()
         emit({'phase': phase, 'seconds': time.perf_counter() - t0})
-    if {'kernel', 'train', 'serve', 'serve_modes'} <= set(phases):
+    if set(ALL_PHASES) - {'device', 'build'} <= set(phases):
         emit({'kernels': kernels_line(ctx)})
     print(ctx['smi'], flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': ctx['name'],

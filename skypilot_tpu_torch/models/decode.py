@@ -22,6 +22,10 @@ PyTorch on one device.
     kernel on the card (``ops/attention.py``); the decode, verify and
     chunk paths attend over the gathered pool rows in plain tensor code,
     as the JAX engine does with ``einsum``.
+  - **models**: the block math is the model's (``model=``): Llama's, or
+    a ``MixtralModel``'s, whose MoE routes each dispatch's flattened
+    [B, S] rows together (bucket padding and parked slots included), as
+    the JAX engine feeds them.
   - sampling (greedy / temperature / top-k) runs on the device from a
     ``torch.Generator`` the caller owns, so a step's only host traffic
     is the sampled token ids.
@@ -823,7 +827,7 @@ class DecodeEngine:
             q, k, v = model._qkv(lp, x, self._cos, self._sin, positions)
             attn = attention_ops.attention(q, k, v, causal=True)
             x = x + model._attn_out(lp, attn)
-            x = x + model._mlp_delta(lp, x)
+            x = x + model._mlp_delta(lp, x)[0]
             sink(i, k, v)
         x = rms_norm(x, params['final_norm'], c.norm_eps)
         # Logits only for each last real token: no [N, T, V] matmul.
@@ -915,7 +919,7 @@ class DecodeEngine:
             k_slot, v_slot = self._slot_rows(state, i, slot, table)
             attn = self._attend_pool(q, k_slot[None], v_slot[None], valid)
             x = x + model._attn_out(lp, attn)
-            x = x + model._mlp_delta(lp, x)
+            x = x + model._mlp_delta(lp, x)[0]
         return x
 
     # -- insert -------------------------------------------------------------
@@ -1179,7 +1183,7 @@ class DecodeEngine:
             k_layer, v_layer = self._batch_rows(state, i)
             attn = self._attend_pool(q, k_layer, v_layer, valid)
             x = x + model._attn_out(lp, attn)
-            x = x + model._mlp_delta(lp, x)
+            x = x + model._mlp_delta(lp, x)[0]
         x = rms_norm(x, params['final_norm'], c.norm_eps)
         return x[:, 0].float() @ self._head32(params)
 
@@ -1216,6 +1220,31 @@ class DecodeEngine:
     @torch.no_grad()
     def _step_verify_impl(self, params, state, rng, temperature, top_k,
                           draft):
+        k_spec = draft.shape[1]
+        logits = self._verify_logits(params, state, draft)     # [B, T, V]
+        # Row 0 through the full sampler (greedy argmax at temperature
+        # 0, the plain step's draw otherwise).
+        out0 = _sample(logits[:, 0], rng, temperature, top_k)
+        greedy = torch.argmax(logits, dim=-1)                    # [B, T]
+        match = (draft == greedy[:, :k_spec]).long()
+        accept = torch.cumprod(match, dim=1).sum(dim=1)          # [B]
+        accept = torch.where(temperature > 0.0,
+                             torch.zeros_like(accept), accept)
+        out = torch.cat([out0[:, None], greedy[:, 1:]], dim=1)
+        new_last = torch.gather(out, 1, accept[:, None])[:, 0]
+        active_i = state.active.long()
+        state.lengths.add_((accept + 1) * active_i).clamp_(
+            max=self.max_len - 1)
+        state.last_tokens.copy_(torch.where(state.active, new_last,
+                                            state.last_tokens))
+        return state, out, accept, rng
+
+    @torch.no_grad()
+    def _verify_logits(self, params, state, draft) -> torch.Tensor:
+        """The verify step's forward over each slot's pending token and
+        ``draft`` [B, K]: writes the K + 1 KV rows and returns the logits
+        [B, K + 1, V] f32, without accepting or advancing the slots
+        (chip_smoke.py holds them against plain steps' through it)."""
         c = self.config
         model = self.model
         k_spec = draft.shape[1]
@@ -1250,25 +1279,9 @@ class DecodeEngine:
             k_layer, v_layer = self._batch_rows(state, i)
             attn = self._attend_pool(q, k_layer, v_layer, valid)
             x = x + model._attn_out(lp, attn)
-            x = x + model._mlp_delta(lp, x)
+            x = x + model._mlp_delta(lp, x)[0]
         x = rms_norm(x, params['final_norm'], c.norm_eps)
-        logits = x.float() @ self._head32(params)               # [B, T, V]
-        # Row 0 through the full sampler (greedy argmax at temperature
-        # 0, the plain step's draw otherwise).
-        out0 = _sample(logits[:, 0], rng, temperature, top_k)
-        greedy = torch.argmax(logits, dim=-1)                    # [B, T]
-        match = (draft == greedy[:, :k_spec]).long()
-        accept = torch.cumprod(match, dim=1).sum(dim=1)          # [B]
-        accept = torch.where(temperature > 0.0,
-                             torch.zeros_like(accept), accept)
-        out = torch.cat([out0[:, None], greedy[:, 1:]], dim=1)
-        new_last = torch.gather(out, 1, accept[:, None])[:, 0]
-        active_i = state.active.long()
-        state.lengths.add_((accept + 1) * active_i).clamp_(
-            max=self.max_len - 1)
-        state.last_tokens.copy_(torch.where(state.active, new_last,
-                                            state.last_tokens))
-        return state, out, accept, rng
+        return x.float() @ self._head32(params)
 
 
 def draft_tokens(history: List[int], k: int, ngram: int = 3) -> List[int]:

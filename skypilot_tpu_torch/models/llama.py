@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from collections import OrderedDict
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,9 +32,7 @@ from skypilot_tpu_torch.ops.layers import (apply_rotary, precompute_rotary,
 from skypilot_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
-
-LAYER_PARAMS = ('wq', 'wk', 'wv', 'wo', 'w_gate', 'w_up', 'w_down',
-                'attn_norm', 'mlp_norm')
+Aux = Union[torch.Tensor, float]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,8 +149,12 @@ class LlamaModel(nn.Module):
     ``apply`` is the full forward to f32 logits; ``init_cache`` +
     ``decode_step`` are the plain decode oracle. The serving engine
     (``models/decode.py``) reuses ``_qkv``/``_mlp_delta`` so the block
-    math lives once.
+    math lives once; a subclass swaps the feed-forward by overriding
+    ``_param_shapes`` and ``_mlp_delta`` (``models/mixtral.py``).
     """
+
+    # Layer parameters kept in f32 whatever the config dtype.
+    F32_PARAMS: Tuple[str, ...] = ()
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = None):
         super().__init__()
@@ -160,27 +163,33 @@ class LlamaModel(nn.Module):
         # builds one when it is given no model).
         self.device = (torch.device('meta') if device == 'meta'
                        else resolve_device(device))
-        shapes = param_shapes(config)
+        shapes = self._param_shapes()
 
-        def empty(shape):
-            return nn.Parameter(torch.empty(shape, dtype=config.dtype,
+        def empty(shape, name=''):
+            dtype = (torch.float32 if name in self.F32_PARAMS
+                     else config.dtype)
+            return nn.Parameter(torch.empty(shape, dtype=dtype,
                                             device=self.device),
                                 requires_grad=False)
 
         self.embed = empty(shapes['embed'][0])
         self.final_norm = empty(shapes['final_norm'][0])
-        self.layers = nn.ParameterDict(
-            {name: empty(shape)
-             for name, (shape, _) in shapes['layers'].items()})
+        # An OrderedDict keeps the declared order (a dict would be sorted).
+        self.layers = nn.ParameterDict(OrderedDict(
+            (name, empty(shape, name))
+            for name, (shape, _) in shapes['layers'].items()))
         self.lm_head = (empty(shapes['lm_head'][0])
                         if 'lm_head' in shapes else None)
+
+    def _param_shapes(self) -> Params:
+        return param_shapes(self.config)
 
     # -- parameters -----------------------------------------------------------
     def params(self) -> Params:
         """The parameter tree, named and nested as the JAX pytree."""
         tree: Params = {
             'embed': self.embed, 'final_norm': self.final_norm,
-            'layers': {name: self.layers[name] for name in LAYER_PARAMS},
+            'layers': dict(self.layers.items()),
         }
         if self.lm_head is not None:
             tree['lm_head'] = self.lm_head
@@ -193,7 +202,7 @@ class LlamaModel(nn.Module):
         dtype one layer at a time, so an 8 B model never exists in f32;
         norm weights are ones. The distributions of the JAX ``init``; the
         bits differ (another generator)."""
-        shapes = param_shapes(self.config)
+        shapes = self._param_shapes()
         tree = self.params()
 
         def fill(param, shape, fan_in):
@@ -208,8 +217,8 @@ class LlamaModel(nn.Module):
 
         fill(tree['embed'], *shapes['embed'])
         fill(tree['final_norm'], *shapes['final_norm'])
-        for name in LAYER_PARAMS:
-            fill(tree['layers'][name], *shapes['layers'][name])
+        for name, param in tree['layers'].items():
+            fill(param, *shapes['layers'][name])
         if 'lm_head' in tree:
             fill(tree['lm_head'], *shapes['lm_head'])
         return tree
@@ -232,7 +241,7 @@ class LlamaModel(nn.Module):
             raise ValueError(f'parameter trees differ in {sorted(missing)}')
         for name, value in tree.items():
             if name == 'layers':
-                for lname in LAYER_PARAMS:
+                for lname in own['layers']:
                     copy(own['layers'][lname], value[lname],
                          f'layers.{lname}')
             else:
@@ -268,8 +277,11 @@ class LlamaModel(nn.Module):
                                                           self.config.embed_dim)
 
     def _mlp_delta(self, lp: Params, x: torch.Tensor,
-                   tag: Optional[Callable] = None) -> torch.Tensor:
-        """Post-attention SwiGLU feed-forward delta; ``tag`` marks
+                   tag: Optional[Callable] = None
+                   ) -> Tuple[torch.Tensor, Aux]:
+        """Post-attention SwiGLU feed-forward -> (delta, aux loss); the
+        aux loss of this dense feed-forward is 0.0 (a float, so that the
+        decode path makes no tensor for it). ``tag`` marks
         silu(gate) * up as 'mlp_gated'."""
         h = rms_norm(x, lp['mlp_norm'], self.config.norm_eps)
         gate = h @ lp['w_gate']
@@ -277,7 +289,7 @@ class LlamaModel(nn.Module):
         gated = torch.nn.functional.silu(gate) * up
         if tag is not None:
             gated = tag('mlp_gated', gated)
-        return gated @ lp['w_down']
+        return gated @ lp['w_down'], 0.0
 
     def _head(self, params: Params) -> torch.Tensor:
         return (params['embed'].T if self.config.tie_embeddings
@@ -307,7 +319,7 @@ class LlamaModel(nn.Module):
             attn = attention_ops.attention(q, k, v, causal=True,
                                            force_impl=force_impl)
             x = x + self._attn_out(lp, attn)
-            x = x + self._mlp_delta(lp, x)
+            x = x + self._mlp_delta(lp, x)[0]
         x = rms_norm(x, params['final_norm'], c.norm_eps)
         # bf16 operands, f32 products and sums: f32-accurate logits.
         return x.float() @ self._head(params).float()
@@ -322,8 +334,11 @@ class LlamaModel(nn.Module):
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Differentiable forward -> (logits [B, S, V] f32, aux loss).
 
-        aux is 0 for this dense model (the Trainer adds
-        ``aux_loss_weight * aux``). Each stacked ``[L, ...]`` parameter is
+        aux is the mean over layers of each layer's feed-forward aux loss:
+        0 for this dense model, the router's load-balance loss for an MoE
+        one (the Trainer adds ``aux_loss_weight * aux``). Each layer's aux
+        is an output of its checkpointed function, so the remat policies
+        recompute it with the rest. Each stacked ``[L, ...]`` parameter is
         split with one ``unbind`` per call, whose backward is one
         ``stack``, so no layer allocates a full-size zero gradient."""
         c = self.config
@@ -333,25 +348,30 @@ class LlamaModel(nn.Module):
         cos, sin = precompute_rotary(c.head_dim, c.max_seq_len,
                                      c.rope_theta, device=dev)
 
+        names = list(params['layers'])
+
         def layer(x, *values, tag=None):
-            lp = dict(zip(LAYER_PARAMS, values))
+            lp = dict(zip(names, values))
             q, k, v = self._qkv(lp, x, cos, sin, positions, tag)
             attn = attention_ops.attention(q, k, v, causal=True,
                                            force_impl=force_impl)
             if tag is not None:
                 attn = tag('attn_out', attn)
             x = x + self._attn_out(lp, attn)
-            return x + self._mlp_delta(lp, x, tag)
+            delta, aux = self._mlp_delta(lp, x, tag)
+            return x + delta, aux
 
         layer = _maybe_remat(layer, c)
-        stacked = [params['layers'][name].unbind(0) for name in LAYER_PARAMS]
+        stacked = [params['layers'][name].unbind(0) for name in names]
         x = params['embed'][tokens].to(c.dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(c.num_layers):
-            x = layer(x, *(values[i] for values in stacked))
+            x, layer_aux = layer(x, *(values[i] for values in stacked))
+            aux = aux + layer_aux
         x = rms_norm(x, params['final_norm'], c.norm_eps)
         # f32 operands: f32-accurate logits, as ``apply``.
         logits = x.float() @ self._head(params).float()
-        return logits, torch.zeros((), dtype=torch.float32, device=dev)
+        return logits, aux / c.num_layers
 
     # -- decode oracle -------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Params:
@@ -393,7 +413,7 @@ class LlamaModel(nn.Module):
             attn = attention_ops.mha_reference(q, k_cache, v_cache,
                                                mask=valid)
             x = x + self._attn_out(lp, attn)
-            x = x + self._mlp_delta(lp, x)
+            x = x + self._mlp_delta(lp, x)[0]
         x = rms_norm(x, params['final_norm'], c.norm_eps)
         logits = x[:, -1].float() @ self._head(params).float()
         return logits, {'k': torch.stack(new_k), 'v': torch.stack(new_v),
@@ -524,7 +544,12 @@ class _Tagger:
 def _dots_policy(ctx, op, *args, **kwargs):
     """Keep what JAX's 'dots' policy keeps: outputs of matmuls with no
     batch dims (aten.mm; a [b, s, e] @ [e, n] product lowers to one) and
-    the flash forward's out and lse; recompute everything else."""
+    the flash forward's out and lse; recompute everything else. On an
+    MoE layer that keeps the router product (an mm) and not the expert
+    products, whose expert dim is a batch dim (aten.bmm), as
+    ``dots_with_no_batch_dims_saveable`` does. JAX also keeps its
+    dispatch and combine einsums (no batch dims); here they are a copy
+    and a weighted sum, recomputed (ops/moe.py)."""
     del ctx, args, kwargs
     if op in (torch.ops.aten.mm.default,
               torch.ops.skytpu.flash_fwd.default):

@@ -54,7 +54,8 @@ from skypilot_tpu_torch.models import decode
 from skypilot_tpu_torch.models import paged_kv
 from skypilot_tpu_torch.models.decode import (DecodeEngine, chunk_spans,
                                               draft_tokens, prefill_bucket)
-from skypilot_tpu_torch.models.llama import PRESETS, LlamaConfig, LlamaModel
+from skypilot_tpu_torch.models import llama, mixtral
+from skypilot_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from skypilot_tpu_torch.utils import metrics as metrics_lib
 from skypilot_tpu_torch.utils import timeline
 from skypilot_tpu_torch.utils.device import DeviceLike
@@ -2027,9 +2028,9 @@ def build_parser():
         description='PyTorch generation-server replica')
     parser.add_argument('--model', default='llama',
                         choices=['llama', 'mixtral'],
-                        help='model family (mixtral is not yet ported)')
+                        help='model family')
     parser.add_argument('--preset', default='llama-1b',
-                        help='llama PRESETS key')
+                        help='a PRESETS key of the --model family')
     parser.add_argument(
         '--port', type=int,
         default=int(env_vars.get('SKYTPU_SERVE_REPLICA_PORT')))
@@ -2078,26 +2079,42 @@ def _checkpoint_params(model: LlamaModel, ckpt_dir: str):
     return params
 
 
+@torch.no_grad()
+def _round_f32_leaves(params, dtype: torch.dtype) -> None:
+    """Round every f32 parameter (Mixtral's router) to ``dtype`` in
+    place, keeping it f32: the JAX replica casts its f32 leaves to the
+    config dtype, and its MoE routes from that rounded router upcast to
+    f32, so this replica routes from the same values."""
+    leaves = [params[n] for n in ('embed', 'final_norm', 'lm_head')
+              if n in params] + list(params['layers'].values())
+    for t in leaves:
+        if t.dtype == torch.float32 and dtype != torch.float32:
+            t.copy_(t.to(dtype).float())
+
+
 def build_scheduler(args) -> GenerationScheduler:
     """The replica's scheduler from parsed ``build_parser()`` arguments:
     random weights drawn from ``--seed`` directly on the device in the
     model dtype (an 8 B model is never built in f32 or on the host), or,
     with ``--ckpt-dir``, the params of the latest checkpoint the port's
-    trainer saved there, cast to the model dtype."""
-    if args.model != 'llama':
-        raise SystemExit(f'--model {args.model} is not yet ported to the '
-                         f'PyTorch replica')
-    if args.preset not in PRESETS:
+    trainer saved there, cast to the model dtype. ``--model mixtral``
+    serves the sparse-MoE model; its f32 router is rounded to the model
+    dtype, as the JAX replica rounds it."""
+    presets, model_cls = ((llama.PRESETS, LlamaModel)
+                          if args.model == 'llama' else
+                          (mixtral.PRESETS, mixtral.MixtralModel))
+    if args.preset not in presets:
         raise SystemExit(f'unknown --preset {args.preset!r}; valid: '
-                         f'{sorted(PRESETS)}')
-    config = PRESETS[args.preset]
-    model = LlamaModel(config, device=args.device)
+                         f'{sorted(presets)}')
+    config = presets[args.preset]
+    model = model_cls(config, device=args.device)
     if args.ckpt_dir:
         params = _checkpoint_params(model, args.ckpt_dir)
     else:
         gen = torch.Generator(device=model.device)
         gen.manual_seed(args.seed)
         params = model.init(gen)
+    _round_f32_leaves(params, config.dtype)
     return GenerationScheduler(config, params,
                                batch_slots=args.batch_slots,
                                max_len=args.max_len, model=model,

@@ -59,15 +59,17 @@ class CheckpointManager:
     def save(self, state: Any, step: Optional[int] = None,
              force: bool = False) -> bool:
         """Persist ``state`` (a TrainState). ``step`` defaults to
-        ``state.step``. Unless ``force``, only steps that are a multiple
-        of ``save_interval_steps`` and newer than the latest saved step
-        are written. Returns whether a save started."""
+        ``state.step``. Unless ``force``, the first save into an empty
+        directory is written whatever its step, and after it only steps
+        that are a multiple of ``save_interval_steps`` and newer than the
+        latest saved step (orbax's default policy: the initial save and
+        the fixed interval). Returns whether a save started."""
         if step is None:
             step = int(state.step)
         if not force:
             latest = self.latest_step()
-            if step % self.save_interval_steps or (
-                    latest is not None and step <= latest):
+            if latest is not None and (step % self.save_interval_steps
+                                       or step <= latest):
                 return False
         self.wait()
         tree = _to_host(state.to_tree())

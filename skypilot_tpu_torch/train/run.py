@@ -8,9 +8,10 @@ same log lines, on one NVIDIA GPU: init (or resume from ``--ckpt-dir``),
 a train step per synthetic batch, tokens/s and MFU against the card's
 bf16 peak, checkpoints every ``--save-every`` steps. ``--device cpu``
 runs it on the host (tests); without it the trainer refuses to start on
-a machine with no GPU. Multi-device meshes (``--dp/--fsdp/--tp/--sp/
---pp/--ep/--dcn`` above 1) and ``--model mixtral`` are not ported yet and
-exit naming ROADMAP.md. With ``$SKYTPU_WARM_INIT_CACHE`` set (and no
+a machine with no GPU. ``--model mixtral`` trains the sparse-MoE model
+with its router's aux loss; MFU counts its active (top-k) parameters.
+Multi-device meshes (``--dp/--fsdp/--tp/--sp/--pp/--ep/--dcn`` above 1)
+are not ported yet and exit naming ROADMAP.md. With ``$SKYTPU_WARM_INIT_CACHE`` set (and no
 ``--ckpt-dir``), the initialised state is restored from a snapshot there
 when one matches, and written there otherwise.
 """
@@ -26,9 +27,9 @@ from typing import Any, Callable, Dict, Optional
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog='skypilot_tpu_torch.train.run')
     p.add_argument('--preset', default='llama3-8b',
-                   help='model preset (llama PRESETS key)')
+                   help='model preset (a PRESETS key of the --model family)')
     p.add_argument('--model', default='llama', choices=['llama', 'mixtral'],
-                   help='model family (mixtral is not yet ported)')
+                   help='model family')
     p.add_argument('--batch', type=int, default=8,
                    help='GLOBAL batch size (across all devices)')
     p.add_argument('--seq', type=int, default=8192)
@@ -105,26 +106,26 @@ def main(argv=None,
     import torch
 
     from skypilot_tpu_torch import accelerators
-    from skypilot_tpu_torch.models.llama import PRESETS, LlamaModel
+    from skypilot_tpu_torch.models import llama, mixtral
     from skypilot_tpu_torch.train import CheckpointManager, Trainer
     from skypilot_tpu_torch.utils.device import resolve_device
     # The benchmark reads this mark's name as "framework ready".
     skytpu_callback.mark('jax_ready')
 
-    if args.model != 'llama':
-        raise SystemExit(f'--model {args.model} is not yet ported to the '
-                         'PyTorch trainer (ROADMAP.md queue 1, item 7)')
     _check_single_device(args, distributed.num_slices())
-    if args.preset not in PRESETS:
+    presets, model_cls = ((llama.PRESETS, llama.LlamaModel)
+                          if args.model == 'llama' else
+                          (mixtral.PRESETS, mixtral.MixtralModel))
+    if args.preset not in presets:
         raise SystemExit(f'unknown --preset {args.preset!r}; valid: '
-                         f'{sorted(PRESETS)}')
+                         f'{sorted(presets)}')
     device = resolve_device(args.device)
-    config = PRESETS[args.preset]
+    config = presets[args.preset]
     if args.remat is not None:
         config = (dataclasses.replace(config, remat=False)
                   if args.remat == 'none' else dataclasses.replace(
                       config, remat=True, remat_policy=args.remat))
-    model = LlamaModel(config, device=device)
+    model = model_cls(config, device=device)
     trainer = Trainer(model, learning_rate=args.lr, accum_steps=args.accum)
     peak = accelerators.peak_bf16_flops(device)
     print(f'[train] devices=1 procs=1 device={device} model={args.preset} '

@@ -17,7 +17,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from skypilot_tpu_torch.models.llama import LAYER_PARAMS, LlamaModel, Params
+from skypilot_tpu_torch.models.llama import LlamaModel, Params
 
 MAX_GRAD_NORM = 1.0
 ADAM_B1, ADAM_B2, ADAM_EPS, WEIGHT_DECAY = 0.9, 0.95, 1e-8, 0.1
@@ -36,9 +36,10 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 def leaf_names(params: Params) -> List[str]:
     """Leaf paths of a parameter tree, named as the JAX pytree's
-    ('embed', 'layers/wq', ...), in a fixed order."""
+    ('embed', 'layers/wq', ...): the top-level leaves, then the layer
+    leaves in the tree's order (the model's)."""
     names = [n for n in ('embed', 'final_norm', 'lm_head') if n in params]
-    return names + [f'layers/{n}' for n in LAYER_PARAMS]
+    return names + [f'layers/{n}' for n in params['layers']]
 
 
 def get_leaf(tree: Params, name: str) -> Any:

@@ -7,6 +7,7 @@ which recomputes the JAX forward for every token (as
 tests/test_decode.py does for the JAX server). Token streams compare
 exactly.
 """
+import dataclasses
 import json
 import os
 import threading
@@ -22,6 +23,7 @@ import torch
 
 from skypilot_tpu.models import llama as jax_llama
 from skypilot_tpu_torch.models import llama as torch_llama
+from skypilot_tpu_torch.models import mixtral
 from skypilot_tpu_torch.serve import generation_server as gs
 
 CFG = torch_llama.PRESETS['test-tiny']
@@ -201,9 +203,30 @@ def test_cli_defaults_to_the_card_and_refuses_unported_options(
                               '--ckpt-dir', '/nonexistent'])
     with pytest.raises(SystemExit, match='no checkpoint found'):
         gs.build_scheduler(args)
-    args = parser.parse_args(['--model', 'mixtral', '--device', 'cpu'])
-    with pytest.raises(SystemExit, match='not yet ported'):
-        gs.build_scheduler(args)
+    # Mixtral is served: an engine over a MixtralModel whose router stays
+    # f32 holding values rounded to the model dtype, as the JAX replica
+    # routes (a bf16 copy of the tiny preset shows the rounding).
+    moe = ['--model', 'mixtral', '--preset', 'test-tiny-moe', '--device',
+           'cpu', '--max-len', '64']
+    for dtype in (torch.float32, torch.bfloat16):
+        monkeypatch.setitem(mixtral.PRESETS, 'test-tiny-moe',
+                            dataclasses.replace(
+                                mixtral.PRESETS['test-tiny-moe'],
+                                dtype=dtype))
+        sched = gs.build_scheduler(parser.parse_args(moe))
+        assert isinstance(sched.engine.model, mixtral.MixtralModel)
+        router = sched.params['layers']['router']
+        assert router.dtype == torch.float32
+        assert sched.params['layers']['we_gate'].dtype == dtype
+        assert torch.equal(router, router.to(dtype).float())
+    gen = torch.Generator().manual_seed(0)
+    drawn = mixtral.MixtralModel(sched.config, device='cpu').init(gen)
+    assert not torch.equal(router, drawn['layers']['router'])
+    assert torch.equal(router,
+                       drawn['layers']['router'].to(torch.bfloat16).float())
+    with pytest.raises(SystemExit, match='unknown --preset'):
+        gs.build_scheduler(parser.parse_args(
+            ['--model', 'mixtral', '--device', 'cpu']))
     args = parser.parse_args(['--preset', 'nope', '--device', 'cpu'])
     with pytest.raises(SystemExit, match='unknown --preset'):
         gs.build_scheduler(args)
