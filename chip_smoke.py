@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernel,train
     python3 chip_smoke.py --phases build,breakdown   # where the time goes
     python3 chip_smoke.py --phases build,kernel,serve_moe,train_moe
+    python3 chip_smoke.py --phases device,build,kernel,train,train_mesh
     python3 chip_smoke.py --phases build,kernel --parent DIR  # old vs new
 
 Phases, each printing one JSON object per line:
@@ -32,6 +33,19 @@ Phases, each printing one JSON object per line:
           full-width gate of loss and grads through the kernels against
           the reference attention; the step's device time by kernel; the
           warm-init snapshot (init against restore, bit for bit);
+  train_mesh  the multi-device trainer: train.run under the SKYTPU_*
+          rank contract at one process (--fsdp auto), its losses bit for
+          bit the train phase's; a probe of two NCCL ranks; then two
+          ranks (rank r on card r mod the cards: on one card they share
+          it over gloo with CUDA tensors, as NCCL refuses two ranks on
+          one device), each through train.run, llama-1b at full width
+          and depth, remat 'dots', the train phase's batch and init, on
+          the meshes {fsdp: 2} and {tp: 2} (global batch 4 both): losses
+          and grad norms against the one-device trainer, each
+          re-assembled leaf's change from the init against the one-device
+          run's, K1/K2 launches per rank, peak memory per rank, ms per
+          step (two ranks on one card, collectives through the host: not
+          a multi-GPU number); the collectives bench at world 2;
   serve   the generation-server replica at llama3-8b full width (random
           weights from a seed, bf16, paged KV, speculative decode) behind
           its HTTP surface: greedy /generate requests, a prefix-cache hit,
@@ -83,8 +97,8 @@ import urllib.error
 import urllib.request
 from typing import NamedTuple
 
-ALL_PHASES = ('device', 'build', 'kernel', 'train', 'serve', 'serve_modes',
-              'serve_moe', 'train_moe')
+ALL_PHASES = ('device', 'build', 'kernel', 'train', 'train_mesh', 'serve',
+              'serve_modes', 'serve_moe', 'train_moe')
 # Run only when named in --phases: a per-dispatch time breakdown.
 EXTRA_PHASES = ('breakdown',)
 KERNELS = ('flash_fwd', 'flash_bwd')
@@ -139,6 +153,21 @@ ADMIT_KV_TOL = 2e-2
 NAMED_POLICIES = ('names', 'names_qkv', 'names_offload')
 GRAD_NORM_RTOL = 1e-3
 POLICY_CALLS = 5  # timed forward + backward calls per policy
+# train_mesh: two ranks on the one card, each through train.run (remat
+# 'dots', the train phase's batch 4 and init, 3 steps), on two meshes
+# (name, mesh flags): fsdp 2 (b 2 x 8192 per rank, 16/8 heads) and tp 2
+# (b 4 x 8192, 8/4 heads per rank; the pair peaks at ~62 GB). Gates
+# against the one-device trainer: loss GATE_LOSS_RTOL and grad norm
+# GATE_GRAD_RTOL relative (the train phase's K1/K2 tolerances), K1/K2
+# launches per rank per step as one device's, and each re-assembled
+# leaf's change from the shared init within MESH_UPDATE_RTOL relative L2
+# of the one-device run's change. Three AdamW steps at lr 3e-4 move a
+# leaf by 2-7% of its norm, so the params themselves would hide a leaf
+# left unchanged; its change reads 1.0 against the one-device run's.
+MESH_STEPS = 3
+MESH_UPDATE_RTOL = 0.5
+MESH_RUNS = (('fsdp2', ['--fsdp', '2']), ('tp2', ['--tp', '2', '--fsdp', '1']))
+MESH_TIMEOUT_S = 600
 # Mixtral-8x7B at full width (skypilot_tpu/models/mixtral.py:81-85: embed
 # 4096, 32/8 heads, 8 experts top-2, expert mlp 14336, capacity factor
 # 1.25), its depth cut. serve_moe: 32 -> 16 layers (all 32 are 93.4 GB in
@@ -314,6 +343,18 @@ def phase_kernel(ctx) -> None:
     if not rec['ok']:
         failures.append(rec)
     del q, k, v
+    # K1 at train_mesh's per-rank shapes (fsdp 2: b 2, 16/8 heads; tp 2:
+    # b 4, 8/4 heads).
+    for b, hq, hkv in MESH_KERNEL_SHAPES:
+        q, k, v = _qkv(gen, b, TRAIN_SEQ, TRAIN_SEQ, hq, hkv, HEAD_DIM)
+        rec = check_flash_fwd(q, k, v, True, _fwd_by_kv_head)
+        rec.update(time_flash(ctx, q, k, v, HEAD_DIM ** -0.5, sets=2,
+                              plain=_fwd_by_kv_head))
+        emit(rec)
+        worst = max(worst, rec['out_max_abs_err'])
+        if not rec['ok']:
+            failures.append(rec)
+        del q, k, v
     # K1 at the train_moe shape (mixtral-8x7b heads, batch 1 x 4096).
     q, k, v = _qkv(gen, MOE_TRAIN_B, MOE_TRAIN_SEQ, MOE_TRAIN_SEQ, HQ, HKV,
                    HEAD_DIM)
@@ -368,6 +409,11 @@ BWD_CASES = [Case(1, sq, sk, causal, HEAD_DIM, hq, hkv)
                                     (300, 777, False))] + [
     Case(1, 200, 333, True, 64, TRAIN_HQ, TRAIN_HKV),
     Case(2, 300, 300, True, HEAD_DIM, HQ, HKV, fused=True)]
+# train_mesh's per-rank shapes at seq 8192: (b, hq, hkv).
+MESH_KERNEL_SHAPES = ((TRAIN_B // 2, TRAIN_HQ, TRAIN_HKV),
+                      (TRAIN_B, TRAIN_HQ // 2, TRAIN_HKV // 2))
+BWD_CASES += [Case(b, TRAIN_SEQ, TRAIN_SEQ, True, HEAD_DIM, hq, hkv)
+              for b, hq, hkv in MESH_KERNEL_SHAPES]
 
 
 def _qkv(gen, b, sq, sk, hq, hkv, d):
@@ -486,10 +532,13 @@ def check_flash_bwd(ctx, gen):
             failures.append(rec)
         del q, k, v, dout, out, lse, got, want
     ctx['flash_bwd'] = {'max_abs_err': worst}
-    # Timed at the train phase's shape and at train_moe's.
+    # Timed at the train phase's shape, at train_moe's and at
+    # train_mesh's per-rank shapes.
     for key, (b, s, hq, hkv) in (
             ('flash_bwd_timing', (TRAIN_B, TRAIN_SEQ, TRAIN_HQ, TRAIN_HKV)),
-            ('flash_bwd_timing_moe', (MOE_TRAIN_B, MOE_TRAIN_SEQ, HQ, HKV))):
+            ('flash_bwd_timing_moe', (MOE_TRAIN_B, MOE_TRAIN_SEQ, HQ, HKV))
+    ) + tuple((('flash_bwd_timing_mesh', b, hq), (b, TRAIN_SEQ, hq, hkv))
+              for b, hq, hkv in MESH_KERNEL_SHAPES):
         timing = time_flash_bwd(ctx, b, s, hq, hkv)
         ctx[key] = timing
         emit({'phase': 'kernel', 'kernel': 'flash_bwd', 'b': b, 'sq': s,
@@ -643,6 +692,12 @@ def _rel_l2(got, want) -> float:
             / want.float().norm().clamp(min=1e-30)).item()
 
 
+def _rel_update(got, want, init) -> float:
+    """Relative L2 between two runs' changes from the same ``init``: 0
+    where neither moved, past any limit where only ``got`` did."""
+    return _rel_l2(got.float() - init.float(), want.float() - init.float())
+
+
 def phase_train(ctx) -> None:
     """llama-1b at full width and depth through ``train.run.main``."""
     import shutil
@@ -655,10 +710,7 @@ def phase_train(ctx) -> None:
                                                leaf_names)
     cfg = PRESETS['llama-1b']
     layers = cfg.num_layers
-    gen = torch.Generator(device='cuda')
-    gen.manual_seed(7)
-    fixed = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_SEQ),
-                          device='cuda', generator=gen)
+    fixed = _train_batch(cfg)
     batch = {'tokens': fixed, 'targets': torch.roll(fixed, -1, dims=1)}
     tmp = tempfile.mkdtemp(prefix='chip_smoke_train_')
     ckpt = os.path.join(tmp, 'ckpt')
@@ -685,6 +737,7 @@ def phase_train(ctx) -> None:
             raise RuntimeError(f'3 dots steps launched {launches}, want '
                                f'{want}')
         ctx['train_launches'] = launches
+        ctx['train_losses'] = losses
         # One more step, synced, for the step time without checkpoint
         # copies; then one under torch.profiler for where it goes.
         trainer, state = res['trainer'], res['state']
@@ -799,6 +852,290 @@ def phase_train(ctx) -> None:
             or not warm['restored_equal']:
         raise RuntimeError(f'warm-init snapshot: {warm}')
     emit(lm_head_cost(ctx, cfg))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _environ(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _train_batch(cfg):
+    """The train phase's fixed batch: [TRAIN_B, TRAIN_SEQ] from seed 7."""
+    import torch
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(7)
+    return torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_SEQ),
+                         device='cuda', generator=gen)
+
+
+def _ms_per_step(log):
+    """Host ms of the synced steps after the first (which warms up)."""
+    return [r['seconds'] * 1e3 for r in log[1:]]
+
+
+def phase_train_mesh(ctx) -> None:
+    """The multi-device trainer (``train.run`` on a mesh), as far as one
+    card can show it: the rank contract at one process, then two ranks
+    sharing the card (see the module docstring)."""
+    import shutil
+    import tempfile
+    import torch
+    from skypilot_tpu_torch.models.llama import PRESETS
+    from skypilot_tpu_torch.ops import attention as attn
+    from skypilot_tpu_torch.train import run
+    from skypilot_tpu_torch.train.step import get_leaf, leaf_names
+    cfg = PRESETS['llama-1b']
+    fixed = _train_batch(cfg)
+    dots = TRAIN_ARGV + ['--remat', 'dots', '--steps', str(MESH_STEPS)]
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_mesh_')
+    import multiprocessing
+    mp_ctx = multiprocessing.get_context('spawn')
+    probes, procs = [], []
+    try:
+        # Can NCCL put two ranks on the one card? Probed beside the
+        # contract run; the two-rank runs below take gloo if it cannot.
+        probe_port = _free_port()
+        probes = [mp_ctx.Process(target=_nccl_probe_rank,
+                                 args=(rank, probe_port, tmp))
+                  for rank in range(2)]
+        for proc in probes:
+            proc.start()
+        want = ctx.get('train_losses')
+        if want is None:  # the train phase did not run: its first run
+            want = [r['loss'] for r in run.main(
+                dots, batch_fn=lambda step: fixed)['log']]
+        # The SKYTPU_* contract at one process, --fsdp auto: one device,
+        # no process group, the train phase's path bit for bit.
+        torch.cuda.empty_cache()
+        attn.reset_launch_counts()
+        with _environ(SKYTPU_COORDINATOR_ADDR=f'127.0.0.1:{_free_port()}',
+                      SKYTPU_NUM_PROCESSES='1', SKYTPU_PROCESS_ID='0'):
+            res = run.main(dots + ['--fsdp', 'auto'],
+                           batch_fn=lambda step: fixed)
+        launches = dict(attn.LAUNCHES)
+        contract = {'phase': 'train_mesh', 'check': 'contract_world_1',
+                    'losses': [r['loss'] for r in res['log']],
+                    'want': want, 'ms_per_step': _ms_per_step(res['log']),
+                    'launches': launches, 'card': ctx['smi']}
+        emit(contract)
+        if contract['losses'] != want:
+            raise RuntimeError(f'the contract run at world 1 is not the '
+                               f'train phase bit for bit: {contract}')
+        # The contract run is the one-device reference: its params after
+        # MESH_STEPS steps, and the init every run starts from (train.run
+        # at 0 steps), go to the host, files for rank 0 to hold its
+        # re-assembled params' change against.
+        ref = {'losses': contract['losses'],
+               'grad_norms': [r['grad_norm'] for r in res['log']],
+               'ms_per_step': contract['ms_per_step'],
+               'params': os.path.join(tmp, 'ref.pt'),
+               'init': os.path.join(tmp, 'init.pt')}
+        init = run.main(dots + ['--steps', '0'],
+                        batch_fn=lambda step: fixed)['state'].params
+        for params, path in ((res['state'].params, ref['params']),
+                             (init, ref['init'])):
+            torch.save({n: get_leaf(params, n).detach().cpu()
+                        for n in leaf_names(params)}, path)
+        del res, params, init
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        probe = _join_all(probes, 120)
+        for rank in range(2):
+            path = os.path.join(tmp, f'nccl{rank}.json')
+            if os.path.exists(path):
+                with open(path) as f:
+                    probe[f'rank{rank}'] = json.load(f)
+        nccl_ok = all(probe.get(f'rank{r}', {}).get('ok') for r in range(2))
+        backend = 'nccl' if nccl_ok else 'gloo'
+        emit({'phase': 'train_mesh', 'check': 'two_ranks_on_one_card',
+              'nccl': probe, 'backend': backend, 'card': ctx['smi']})
+
+        # Two ranks on the card.
+        port = _free_port()
+        procs = [mp_ctx.Process(target=_mesh_rank,
+                                args=(rank, port, backend, ref, tmp))
+                 for rank in range(2)]
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        codes = _join_all(procs, MESH_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        if codes['timed_out'] or any(codes['exitcodes']):
+            raise RuntimeError(f'two-rank run: {codes}')
+        ranks = []
+        for rank in range(2):
+            with open(os.path.join(tmp, f'rank{rank}.json')) as f:
+                ranks.append(json.load(f))
+    finally:
+        _join_all(probes + procs, 0)  # stops any left on a failure
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    layers = cfg.num_layers
+    per_rank = {'flash_fwd': MESH_STEPS * layers,
+                'flash_bwd': MESH_STEPS * layers}
+    faults = []
+    mesh_launches = dict(launches)
+    for name, _ in MESH_RUNS:
+        recs = [r[name] for r in ranks]
+        got = recs[0]
+        loss_rel = [abs(a - b) / abs(b)
+                    for a, b in zip(got['losses'], ref['losses'])]
+        norm_rel = [abs(a - b) / abs(b)
+                    for a, b in zip(got['grad_norms'], ref['grad_norms'])]
+        rec = {'phase': 'train_mesh', 'mesh': name, 'ranks': 2,
+               'backend': backend, 'global_batch': TRAIN_B, 'seq': TRAIN_SEQ,
+               'remat': 'dots', 'losses': got['losses'],
+               'losses_one_device': ref['losses'], 'loss_rel_err': loss_rel,
+               'loss_rtol': GATE_LOSS_RTOL,
+               'grad_norms': got['grad_norms'],
+               'grad_norms_one_device': ref['grad_norms'],
+               'grad_norm_rel_err': norm_rel, 'grad_rtol': GATE_GRAD_RTOL,
+               'update_rel_l2': got['update_rel_l2'],
+               'update_rtol': MESH_UPDATE_RTOL,
+               'unmoved_leaves': got['unmoved'],
+               'launches_per_rank': [r['launches'] for r in recs],
+               'peak_mem_gb_per_rank': [r['peak_mem_gb'] for r in recs],
+               'ms_per_step': got['ms_per_step'],
+               'ms_per_step_one_device': ref['ms_per_step'],
+               'ms_note': 'two ranks share one card (collectives through '
+                          'the host under gloo): not a multi-GPU number',
+               'card': ctx['smi']}
+        emit(rec)
+        for r in recs:
+            for k, n in r['launches'].items():
+                mesh_launches[k] += n
+        if (max(loss_rel) > GATE_LOSS_RTOL or max(norm_rel) > GATE_GRAD_RTOL
+                or max(got['update_rel_l2'].values()) > MESH_UPDATE_RTOL
+                or any(r['launches'] != per_rank for r in recs)
+                or any(r['losses'] != got['losses'] for r in recs)):
+            faults.append(name)
+    emit({'phase': 'train_mesh', 'check': 'collectives_bench', 'ranks': 2,
+          'backend': backend, 'allreduce': ranks[0]['bench'],
+          'note': 'two ranks on one card through the host: not an '
+                  'interconnect number', 'wall_s': wall_s,
+          'card': ctx['smi']})
+    ctx['mesh_launches'] = mesh_launches
+    if faults:
+        raise RuntimeError(f'train_mesh runs off the one-device trainer: '
+                           f'{faults}')
+
+
+def _join_all(procs, timeout_s: float):
+    """Join ``procs`` within ``timeout_s`` in all; kill what is left.
+    Returns their exit codes and whether any was still running."""
+    deadline = time.monotonic() + timeout_s
+    for proc in procs:
+        proc.join(max(0.1, deadline - time.monotonic()))
+    timed_out = any(proc.is_alive() for proc in procs)
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    return {'exitcodes': [proc.exitcode for proc in procs],
+            'timed_out': timed_out}
+
+
+def _nccl_probe_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of two ranks in an NCCL group, on card ``rank`` mod the cards
+    there are: one all-reduce; its outcome (or the error's first line)
+    to out_dir."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    rec = {'ok': False}
+    try:
+        dist.init_process_group(
+            'nccl', init_method=f'tcp://127.0.0.1:{port}', world_size=2,
+            rank=rank, timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(4, device='cuda')
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        rec = {'ok': x.tolist() == [2.0] * 4}
+    except Exception as e:  # noqa: BLE001 — the refusal is the finding
+        rec['error'] = f'{type(e).__name__}: ' + ' '.join(
+            line for line in str(e).splitlines()
+            if 'NCCL' in line or 'Duplicate' in line)[:400]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(out_dir, f'nccl{rank}.json'), 'w') as f:
+        json.dump(rec, f)
+
+
+def _mesh_rank(rank: int, port: int, backend: str, ref: dict,
+               out_dir: str) -> None:
+    """One of the two ranks, on card ``rank`` mod the cards there are
+    (``backend``: gloo with CUDA tensors where NCCL refuses), then each
+    of MESH_RUNS through ``train.run.main`` (the group stays up between
+    them), then the collectives bench; results to out_dir."""
+    import torch
+    from skypilot_tpu_torch.models.llama import PRESETS
+    from skypilot_tpu_torch.ops import attention as attn
+    from skypilot_tpu_torch.ops import collectives_bench
+    from skypilot_tpu_torch.runtime import distributed
+    from skypilot_tpu_torch.train import run
+    from skypilot_tpu_torch.train.step import leaf_names
+    distributed.init(f'127.0.0.1:{port}', 2, rank, device_type='cuda',
+                     backend=backend)
+    # A process per rank (the contract's layout is a process per host,
+    # whose init took card 0): rank r takes card r mod the cards.
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    cfg = PRESETS['llama-1b']
+    fixed = _train_batch(cfg)
+    out = {}
+    for name, flags in MESH_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        attn.reset_launch_counts()
+        res = run.main(TRAIN_ARGV + ['--remat', 'dots', '--steps',
+                                     str(MESH_STEPS)] + flags,
+                       batch_fn=lambda step: fixed)
+        launches = dict(attn.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        full = res['trainer'].model.full_params(res['state'].params)
+        rel, unmoved = {}, []
+        if rank == 0:
+            want, init = (torch.load(ref[k], mmap=True, weights_only=True)
+                          for k in ('params', 'init'))
+            flat = dict(full, **{f'layers/{k}': v
+                                 for k, v in full['layers'].items()})
+            for n in leaf_names(full):
+                dev = flat[n].device
+                rel[n] = _rel_update(flat[n], want[n].to(dev),
+                                     init[n].to(dev))
+                if torch.equal(want[n], init[n]):
+                    unmoved.append(n)
+        out[name] = {'losses': [r['loss'] for r in res['log']],
+                     'grad_norms': [r['grad_norm'] for r in res['log']],
+                     'ms_per_step': _ms_per_step(res['log']),
+                     'launches': launches, 'peak_mem_gb': peak_gb,
+                     'update_rel_l2': rel, 'unmoved': unmoved}
+        del res, full
+    out['bench'] = collectives_bench.run_bench(
+        [1.0, 16.0, 64.0], iters=5, device=torch.device('cuda'),
+        verbose=False)
+    with open(os.path.join(out_dir, f'rank{rank}.json'), 'w') as f:
+        json.dump(out, f)
+    distributed.shutdown()
 
 
 def _named_policies(ctx, cfg, state, batch):
@@ -2110,7 +2447,8 @@ def phase_breakdown(ctx) -> None:
 def kernels_line(ctx):
     """K1 timed at the serve path's largest prefill (1536, llama3-8b
     heads), K2 at the train shape; launches summed over the serve,
-    serve_modes, train, serve_moe and train_moe runs (each read from
+    serve_modes, train, train_mesh (the contract run and both ranks'
+    runs), serve_moe and train_moe runs (each read from
     counts zeroed just before it), and listed by phase. Every time is
     device time (``time_device``)."""
     fwd = ctx['flash_timing'][(1, 1536, HQ)]
@@ -2119,6 +2457,7 @@ def kernels_line(ctx):
                           'flash_bwd': 0},
                 'serve_modes': ctx['modes_launches'],
                 'train': ctx['train_launches'],
+                'train_mesh': ctx['mesh_launches'],
                 'serve_moe': ctx['moe_serve_launches'],
                 'train_moe': ctx['moe_train_launches']}
 
@@ -2178,7 +2517,8 @@ def main() -> int:
           'nvidia_smi': ctx['smi'], 'torch': torch.__version__,
           'cuda': torch.version.cuda})
     runners = {'build': phase_build, 'kernel': phase_kernel,
-               'train': phase_train, 'serve': phase_serve,
+               'train': phase_train, 'train_mesh': phase_train_mesh,
+               'serve': phase_serve,
                'serve_modes': phase_serve_modes,
                'serve_moe': phase_serve_moe, 'train_moe': phase_train_moe,
                'breakdown': phase_breakdown}

@@ -11,8 +11,18 @@ functions do; ``params()`` returns the module's own.
 GQA, RoPE, SwiGLU, RMSNorm; bf16 weights and activations, f32 norms,
 softmax and logits. ``apply`` is the no-grad forward that serving uses;
 ``apply_with_aux`` is the differentiable one that training uses, with the
-configured rematerialisation policy around each layer. Sharding and
-pipeline stages are not part of this package yet.
+configured rematerialisation policy around each layer.
+
+On a mesh (``mesh=``, ``parallel/mesh.py``) every parameter is held as
+this rank's shard of its ``logical_axes`` layout under ``rules``, and the
+forward calls the collectives that GSPMD inserted for the JAX model: the
+vocab-parallel ``embed_lookup``; in each layer the fsdp-sharded weights
+gathered where they are used (inside the checkpointed layer, so remat
+gathers them again); q/k/v, gate and up column-parallel over tp (K1 and
+K2 see ``Hq/tp`` and ``Hkv/tp`` heads), ``wo`` and ``w_down``
+row-parallel with an all-reduce; the f32 lm head's logits sharded over
+the vocab, as JAX's ``act_vocab`` -> tp. Pipeline stages (pp), ring
+attention (sp) and experts (ep) are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,9 +37,14 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.ops import attention as attention_ops
+from skypilot_tpu_torch.ops.embedding import embed_lookup
 from skypilot_tpu_torch.ops.layers import (apply_rotary, precompute_rotary,
                                            rms_norm)
+from skypilot_tpu_torch.parallel import sharding
+from skypilot_tpu_torch.parallel.mesh import Mesh, as_axes
+from skypilot_tpu_torch.parallel.sharding import DEFAULT_RULES, LogicalRules
 from skypilot_tpu_torch.utils.device import DeviceLike, resolve_device
+from skypilot_tpu_torch.utils.tree import flatten, unflatten
 
 Params = Dict[str, Any]
 Aux = Union[torch.Tensor, float]
@@ -56,8 +71,8 @@ class LlamaConfig:
     # 'names' / 'names_qkv' / 'names_offload' keep the tagged activations
     # of REMAT_NAMES (the last one on the host for two of them).
     remat_policy: str = 'full'
-    # Pipeline microbatches when the mesh has pp > 1 (multi-device is not
-    # ported; kept so configs carry over field by field).
+    # Pipeline microbatches when the mesh has pp > 1 (pipeline stages are
+    # not ported; kept so configs carry over field by field).
     pp_microbatches: Optional[int] = None
 
     @property
@@ -133,6 +148,29 @@ def param_shapes(config: LlamaConfig) -> Params:
     return shapes
 
 
+def logical_axes(config: LlamaConfig) -> Params:
+    """The logical axis of every dim of every parameter, as the JAX
+    ``logical_axes`` names them."""
+    axes = {
+        'embed': ('vocab', 'embed'),
+        'final_norm': (None,),
+        'layers': {
+            'wq': ('layers', 'embed', 'heads', None),
+            'wk': ('layers', 'embed', 'kv_heads', None),
+            'wv': ('layers', 'embed', 'kv_heads', None),
+            'wo': ('layers', 'heads', None, 'embed'),
+            'w_gate': ('layers', 'embed', 'mlp'),
+            'w_up': ('layers', 'embed', 'mlp'),
+            'w_down': ('layers', 'mlp', 'embed'),
+            'attn_norm': ('layers', None),
+            'mlp_norm': ('layers', None),
+        },
+    }
+    if not config.tie_embeddings:
+        axes['lm_head'] = ('embed', 'vocab')
+    return axes
+
+
 def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
     if isinstance(arr, torch.Tensor):  # e.g. a checkpoint's CPU tensors
         return arr
@@ -156,30 +194,82 @@ class LlamaModel(nn.Module):
     # Layer parameters kept in f32 whatever the config dtype.
     F32_PARAMS: Tuple[str, ...] = ()
 
-    def __init__(self, config: LlamaConfig, device: DeviceLike = None):
+    def __init__(self, config: LlamaConfig, device: DeviceLike = None,
+                 mesh: Optional[Mesh] = None,
+                 rules: LogicalRules = DEFAULT_RULES):
         super().__init__()
         self.config = config
         # 'meta' holds the block math without weights (the decode engine
         # builds one when it is given no model).
         self.device = (torch.device('meta') if device == 'meta'
                        else resolve_device(device))
+        # A mesh of one device is no mesh: the one-device path, unchanged.
+        self.mesh = mesh if mesh is not None and mesh.num_devices > 1 \
+            else None
+        self.rules = rules
         shapes = self._param_shapes()
+        self.specs: Dict[str, Tuple] = {}
+        if self.mesh is not None:
+            self._check_mesh(self.mesh, rules)
+            self.specs = flatten(sharding.tree_specs(rules,
+                                                     self.logical_axes()))
+        batch = set(rules.axes('batch'))
+        # Per leaf, (dim, mesh axes) to all-gather before use: the dims
+        # split over axes that also split the batch (fsdp).
+        self._gathers = {
+            name: [(d, tuple(a for a in as_axes(e) if a in batch))
+                   for d, e in enumerate(spec) if set(as_axes(e)) & batch]
+            for name, spec in self.specs.items()}
+        self._tp = (self.mesh.live(rules.axes('heads'))
+                    if self.mesh is not None else ())
 
-        def empty(shape, name=''):
-            dtype = (torch.float32 if name in self.F32_PARAMS
+        def empty(shape, name):
+            dtype = (torch.float32 if name.split('/')[-1] in self.F32_PARAMS
                      else config.dtype)
+            if name in self.specs:
+                shape = sharding.local_shape(shape, self.specs[name],
+                                             self.mesh)
             return nn.Parameter(torch.empty(shape, dtype=dtype,
                                             device=self.device),
                                 requires_grad=False)
 
-        self.embed = empty(shapes['embed'][0])
-        self.final_norm = empty(shapes['final_norm'][0])
+        self.embed = empty(shapes['embed'][0], 'embed')
+        self.final_norm = empty(shapes['final_norm'][0], 'final_norm')
         # An OrderedDict keeps the declared order (a dict would be sorted).
         self.layers = nn.ParameterDict(OrderedDict(
-            (name, empty(shape, name))
+            (name, empty(shape, f'layers/{name}'))
             for name, (shape, _) in shapes['layers'].items()))
-        self.lm_head = (empty(shapes['lm_head'][0])
+        self.lm_head = (empty(shapes['lm_head'][0], 'lm_head')
                         if 'lm_head' in shapes else None)
+
+    @staticmethod
+    def _check_mesh(mesh: Mesh, rules: LogicalRules) -> None:
+        """The axes this slice ports: dp, fsdp, tp and dcn."""
+        for axis in ('pp', 'sp', 'ep'):
+            if mesh.shape[axis] > 1:
+                raise NotImplementedError(
+                    f'mesh axis {axis}={mesh.shape[axis]} is not yet ported '
+                    'to the PyTorch model (ROADMAP.md queue 1, item 8)')
+        # Weight dims split over batch axes are gathered where used (fsdp);
+        # the head, mlp and vocab dims split over the tensor-parallel axes
+        # stay split. Other layouts GSPMD would take are not ported.
+        tp = mesh.live(rules.axes('heads'))
+        batch = set(rules.axes('batch'))
+        for name in ('kv_heads', 'mlp', 'vocab'):
+            if mesh.live(rules.axes(name)) != tp:
+                raise NotImplementedError(
+                    f'logical axis {name!r} must shard over the heads\' '
+                    f'axes {tp}, not {rules.axes(name)}')
+        if set(tp) & batch:
+            raise NotImplementedError(f'tensor-parallel axes {tp} also '
+                                      'shard the batch')
+        if not set(mesh.live(rules.axes('embed'))) <= batch:
+            raise NotImplementedError(
+                f'embed axes {rules.axes("embed")} outside the batch axes '
+                f'{sorted(batch)} are not supported')
+
+    def logical_axes(self) -> Params:
+        return logical_axes(self.config)
 
     def _param_shapes(self) -> Params:
         return param_shapes(self.config)
@@ -201,52 +291,85 @@ class LlamaModel(nn.Module):
         (which must live there): N(0, 1/fan_in) in f32, cast to the config
         dtype one layer at a time, so an 8 B model never exists in f32;
         norm weights are ones. The distributions of the JAX ``init``; the
-        bits differ (another generator)."""
+        bits differ (another generator). On a mesh each full draw is made
+        and this rank keeps its shard, so every mesh starts from the bits
+        of the one-device init with the same seed."""
         shapes = self._param_shapes()
         tree = self.params()
 
-        def fill(param, shape, fan_in):
+        def fill(param, name, shape, fan_in):
             if fan_in is None:
                 param.fill_(1.0)
                 return
-            rows = param if len(shape) > 2 else param[None]
+            spec = self.specs.get(name, ())
+            if len(shape) > 2:  # one draw per layer; 'layers' is unsplit
+                rows, shape, spec = param, shape[1:], spec[1:]
+            else:
+                rows = param[None]
             for row in rows:
-                draw = torch.randn(row.shape, dtype=torch.float32,
+                draw = torch.randn(shape, dtype=torch.float32,
                                    device=self.device, generator=generator)
-                row.copy_(draw * fan_in ** -0.5)
+                row.copy_(sharding.local_shard(draw * fan_in ** -0.5, spec,
+                                               self.mesh))
 
-        fill(tree['embed'], *shapes['embed'])
-        fill(tree['final_norm'], *shapes['final_norm'])
+        fill(tree['embed'], 'embed', *shapes['embed'])
+        fill(tree['final_norm'], 'final_norm', *shapes['final_norm'])
         for name, param in tree['layers'].items():
-            fill(param, *shapes['layers'][name])
+            fill(param, f'layers/{name}', *shapes['layers'][name])
         if 'lm_head' in tree:
-            fill(tree['lm_head'], *shapes['lm_head'])
+            fill(tree['lm_head'], 'lm_head', *shapes['lm_head'])
         return tree
 
     @torch.no_grad()
     def params_from_numpy(self, tree: Params) -> Params:
         """Copy a JAX parameter tree (``LlamaModel.init`` output as numpy
-        arrays) into this module, 1:1 by name; returns ``params()``."""
-        own = self.params()
-
-        def copy(dst: torch.Tensor, src, name: str) -> None:
-            t = _tensor_from_numpy(src)
+        arrays, or full tensors) into this module, 1:1 by name, keeping
+        this rank's shards on a mesh; returns ``params()``."""
+        own = flatten(self.params())
+        src = flatten(tree)
+        missing = set(own) ^ set(src)
+        if missing:
+            raise ValueError(f'parameter trees differ in {sorted(missing)}')
+        for name, dst in own.items():
+            t = _tensor_from_numpy(src[name])
+            if name in self.specs and t.shape != dst.shape:
+                t = sharding.local_shard(t, self.specs[name], self.mesh)
             if tuple(t.shape) != tuple(dst.shape):
                 raise ValueError(f'{name}: shape {tuple(t.shape)} does not '
                                  f'match {tuple(dst.shape)}')
             dst.copy_(t.to(dst.dtype))
+        return self.params()
 
-        missing = set(own) ^ set(tree)
-        if missing:
-            raise ValueError(f'parameter trees differ in {sorted(missing)}')
-        for name, value in tree.items():
-            if name == 'layers':
-                for lname in own['layers']:
-                    copy(own['layers'][lname], value[lname],
-                         f'layers.{lname}')
-            else:
-                copy(own[name], value, name)
-        return own
+    @torch.no_grad()
+    def full_params(self, params: Optional[Params] = None) -> Params:
+        """The whole parameter tree, each leaf all-gathered from its
+        shards (for tests, checkpoints and serving); ``params()`` itself
+        without a mesh."""
+        params = self.params() if params is None else params
+        if self.mesh is None:
+            return params
+
+        return unflatten({
+            name: sharding.gather_full(t.detach(), self.specs[name],
+                                       self.mesh)
+            for name, t in flatten(params).items()})
+
+    def _use(self, name: str, t: torch.Tensor, layer: bool = False
+             ) -> torch.Tensor:
+        """Leaf ``name`` as the math uses it: its fsdp-split dims
+        all-gathered (a layer's slice drops the leading layer dim)."""
+        for d, axes in self._gathers.get(name, ()):
+            t = sharding.gather_on_use(t, d - 1 if layer else d, self.mesh,
+                                       axes)
+        return t
+
+    def _tp_in(self, h: torch.Tensor) -> torch.Tensor:
+        """Into a column-parallel product over tp."""
+        return sharding.copy_to(h, self.mesh, self._tp)
+
+    def _tp_out(self, y: torch.Tensor) -> torch.Tensor:
+        """Out of a row-parallel product over tp: the partial sums."""
+        return sharding.reduce_from(y, self.mesh, self._tp)
 
     # -- block math -------------------------------------------------------------
     def _qkv(self, lp: Params, x: torch.Tensor, cos: torch.Tensor,
@@ -258,12 +381,11 @@ class LlamaModel(nn.Module):
         'k_rot', 'v_proj', as the JAX ``checkpoint_name``s)."""
         c = self.config
         b, s, e = x.shape
-        h = rms_norm(x, lp['attn_norm'], c.norm_eps)
-        q = (h @ lp['wq'].reshape(e, -1)).view(b, s, c.num_heads, c.head_dim)
-        k = (h @ lp['wk'].reshape(e, -1)).view(b, s, c.num_kv_heads,
-                                                c.head_dim)
-        v = (h @ lp['wv'].reshape(e, -1)).view(b, s, c.num_kv_heads,
-                                                c.head_dim)
+        h = self._tp_in(rms_norm(x, lp['attn_norm'], c.norm_eps))
+        # Heads per rank: all of them, or Hq/tp and Hkv/tp on a mesh.
+        q = (h @ lp['wq'].reshape(e, -1)).view(b, s, -1, c.head_dim)
+        k = (h @ lp['wk'].reshape(e, -1)).view(b, s, -1, c.head_dim)
+        v = (h @ lp['wv'].reshape(e, -1)).view(b, s, -1, c.head_dim)
         q = apply_rotary(q, cos, sin, positions)
         k = apply_rotary(k, cos, sin, positions)
         if tag is None:
@@ -273,8 +395,8 @@ class LlamaModel(nn.Module):
     def _attn_out(self, lp: Params, attn: torch.Tensor) -> torch.Tensor:
         """[B, S, H, D] attention context -> [B, S, E] through wo."""
         b, s = attn.shape[:2]
-        return attn.reshape(b, s, -1) @ lp['wo'].reshape(-1,
-                                                          self.config.embed_dim)
+        return self._tp_out(attn.reshape(b, s, -1) @ lp['wo'].reshape(
+            -1, self.config.embed_dim))
 
     def _mlp_delta(self, lp: Params, x: torch.Tensor,
                    tag: Optional[Callable] = None
@@ -283,17 +405,19 @@ class LlamaModel(nn.Module):
         aux loss of this dense feed-forward is 0.0 (a float, so that the
         decode path makes no tensor for it). ``tag`` marks
         silu(gate) * up as 'mlp_gated'."""
-        h = rms_norm(x, lp['mlp_norm'], self.config.norm_eps)
+        h = self._tp_in(rms_norm(x, lp['mlp_norm'], self.config.norm_eps))
         gate = h @ lp['w_gate']
         up = h @ lp['w_up']
         gated = torch.nn.functional.silu(gate) * up
         if tag is not None:
             gated = tag('mlp_gated', gated)
-        return gated @ lp['w_down'], 0.0
+        return self._tp_out(gated @ lp['w_down']), 0.0
 
     def _head(self, params: Params) -> torch.Tensor:
-        return (params['embed'].T if self.config.tie_embeddings
-                else params['lm_head'])
+        """[E, V] (or this rank's [E, V/tp] on a mesh)."""
+        if self.config.tie_embeddings:
+            return self._use('embed', params['embed']).T
+        return self._use('lm_head', params['lm_head'])
 
     @staticmethod
     def layer_params(params: Params, i: int) -> Params:
@@ -305,7 +429,11 @@ class LlamaModel(nn.Module):
               positions: Optional[torch.Tensor] = None,
               force_impl: Optional[str] = None) -> torch.Tensor:
         """tokens [B, S] -> logits [B, S, V] (f32). ``force_impl`` picks
-        the attention implementation (ops/attention.py names)."""
+        the attention implementation (ops/attention.py names). On a mesh:
+        ``apply_with_aux``'s logits (this rank's rows and vocab shard)."""
+        if self.mesh is not None:
+            return self.apply_with_aux(params, tokens, positions,
+                                       force_impl)[0]
         c = self.config
         dev = tokens.device
         if positions is None:
@@ -340,7 +468,10 @@ class LlamaModel(nn.Module):
         is an output of its checkpointed function, so the remat policies
         recompute it with the rest. Each stacked ``[L, ...]`` parameter is
         split with one ``unbind`` per call, whose backward is one
-        ``stack``, so no layer allocates a full-size zero gradient."""
+        ``stack``, so no layer allocates a full-size zero gradient.
+
+        On a mesh, ``tokens`` are this rank's rows [B/batch, S] and the
+        logits are [B/batch, S, V/tp]: this rank's vocab shard."""
         c = self.config
         dev = tokens.device
         if positions is None:
@@ -351,7 +482,8 @@ class LlamaModel(nn.Module):
         names = list(params['layers'])
 
         def layer(x, *values, tag=None):
-            lp = dict(zip(names, values))
+            lp = {name: self._use(f'layers/{name}', value, layer=True)
+                  for name, value in zip(names, values)}
             q, k, v = self._qkv(lp, x, cos, sin, positions, tag)
             attn = attention_ops.attention(q, k, v, causal=True,
                                            force_impl=force_impl)
@@ -363,14 +495,16 @@ class LlamaModel(nn.Module):
 
         layer = _maybe_remat(layer, c)
         stacked = [params['layers'][name].unbind(0) for name in names]
-        x = params['embed'][tokens].to(c.dtype)
+        x = embed_lookup(params['embed'], tokens, self.mesh,
+                         self.rules).to(c.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(c.num_layers):
             x, layer_aux = layer(x, *(values[i] for values in stacked))
             aux = aux + layer_aux
         x = rms_norm(x, params['final_norm'], c.norm_eps)
-        # f32 operands: f32-accurate logits, as ``apply``.
-        logits = x.float() @ self._head(params).float()
+        # f32 operands: f32-accurate logits, as ``apply`` (on a mesh the
+        # tp all-reduce of x's gradient is in f32 too).
+        logits = self._tp_in(x.float()) @ self._head(params).float()
         return logits, aux / c.num_layers
 
     # -- decode oracle -------------------------------------------------------
@@ -388,7 +522,9 @@ class LlamaModel(nn.Module):
                     tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
         """Append ``tokens`` [B, T] at cache length, return last-token
         logits [B, V] (f32) and the new cache. Prefill (T = prompt length)
-        and decode (T = 1) share the one code path."""
+        and decode (T = 1) share the one code path. One device only."""
+        if self.mesh is not None:
+            raise NotImplementedError('decoding on a mesh is not ported')
         c = self.config
         dev = tokens.device
         start = int(cache['length'])
@@ -549,10 +685,15 @@ def _dots_policy(ctx, op, *args, **kwargs):
     products, whose expert dim is a batch dim (aten.bmm), as
     ``dots_with_no_batch_dims_saveable`` does. JAX also keeps its
     dispatch and combine einsums (no batch dims); here they are a copy
-    and a weighted sum, recomputed (ops/moe.py)."""
+    and a weighted sum, recomputed (ops/moe.py). On a tp mesh JAX keeps
+    a row-parallel einsum's whole result, after GSPMD's all-reduce; here
+    the all-reduce's output is kept too, so the recompute runs no
+    collective but the fsdp gathers (which JAX recomputes as well)."""
     del ctx, args, kwargs
     if op in (torch.ops.aten.mm.default,
-              torch.ops.skytpu.flash_fwd.default):
+              torch.ops.skytpu.flash_fwd.default,
+              torch.ops._c10d_functional.all_reduce.default,
+              torch.ops._c10d_functional.wait_tensor.default):
         return torch_checkpoint.CheckpointPolicy.MUST_SAVE
     return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 

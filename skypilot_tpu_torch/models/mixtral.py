@@ -97,6 +97,17 @@ class MixtralModel(LlamaModel):
     config: MixtralConfig
     F32_PARAMS = ('router',)
 
+    def __init__(self, config: MixtralConfig, device=None, mesh=None,
+                 **kwargs):
+        # JAX routes over the global batch (capacity and slot order from
+        # every token); that routing and the expert all-to-all come with
+        # --ep, in one piece.
+        if mesh is not None and mesh.num_devices > 1:
+            raise NotImplementedError(
+                'Mixtral on a mesh of more than one device is not yet '
+                'ported to the PyTorch model (ROADMAP.md queue 1, item 8)')
+        super().__init__(config, device, **kwargs)
+
     @property
     def aux_loss_weight(self) -> float:
         return self.config.router_aux_weight

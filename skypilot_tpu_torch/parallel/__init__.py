@@ -1,0 +1,29 @@
+"""The port's parallelism layer (counterpart of ``skypilot_tpu/parallel``).
+
+A named-axis mesh over the ranks of a process group (``MeshSpec``,
+``make_mesh``), logical-axis sharding rules (``LogicalRules``), and the
+explicit collectives that stand in for GSPMD (``parallel/sharding.py``).
+Axes: ``dp`` data parallel, ``fsdp`` fully-sharded data parallel, ``tp``
+tensor parallel, ``dcn`` cross-slice data parallel; ``sp`` (ring
+attention), ``pp`` (pipeline stages) and ``ep`` (experts) are not ported
+yet (ROADMAP.md queue 1, item 8).
+"""
+from skypilot_tpu_torch.parallel.mesh import (MESH_AXES, MESH_AXIS_DIVISORS,
+                                              Mesh, MeshSpec, make_mesh)
+from skypilot_tpu_torch.parallel.sharding import (DEFAULT_RULES,
+                                                  LogicalRules, local_shard,
+                                                  multislice_rules,
+                                                  tree_specs)
+
+__all__ = [
+    'MESH_AXES',
+    'MESH_AXIS_DIVISORS',
+    'Mesh',
+    'MeshSpec',
+    'make_mesh',
+    'DEFAULT_RULES',
+    'LogicalRules',
+    'local_shard',
+    'multislice_rules',
+    'tree_specs',
+]

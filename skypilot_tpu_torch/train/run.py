@@ -4,16 +4,29 @@
         --batch 4 --seq 8192 --remat dots --steps 500 --ckpt-dir ~/ckpt
 
 Counterpart of ``skypilot_tpu/train/run.py``, with the same flags and the
-same log lines, on one NVIDIA GPU: init (or resume from ``--ckpt-dir``),
-a train step per synthetic batch, tokens/s and MFU against the card's
-bf16 peak, checkpoints every ``--save-every`` steps. ``--device cpu``
-runs it on the host (tests); without it the trainer refuses to start on
-a machine with no GPU. ``--model mixtral`` trains the sparse-MoE model
-with its router's aux loss; MFU counts its active (top-k) parameters.
-Multi-device meshes (``--dp/--fsdp/--tp/--sp/--pp/--ep/--dcn`` above 1)
-are not ported yet and exit naming ROADMAP.md. With ``$SKYTPU_WARM_INIT_CACHE`` set (and no
-``--ckpt-dir``), the initialised state is restored from a snapshot there
-when one matches, and written there otherwise.
+same log lines: init (or resume from ``--ckpt-dir``), a train step per
+synthetic batch, tokens/s and MFU against the card's bf16 peak,
+checkpoints every ``--save-every`` steps. ``--device cpu`` runs it on the
+host (tests); without it the trainer refuses to start on a machine with
+no GPU. ``--model mixtral`` trains the sparse-MoE model with its router's
+aux loss; MFU counts its active (top-k) parameters.
+
+Multi-device: under the SKYTPU_* rank contract (``runtime/distributed
+.py``; one process per host, one worker per local GPU, which this entry
+point starts) the ranks form one process group and train on a mesh of
+``--dp/--fsdp/--tp/--dcn`` (``--fsdp auto``: every device left; ``--dcn
+auto``: the number of slices), sized as the JAX trainer sizes it. Every
+rank makes the same global batch and keeps its rows; rank 0 prints.
+``--sp/--pp/--ep`` above 1, and Mixtral on more than one device, exit as
+not yet ported, naming ROADMAP.md.
+
+    SKYTPU_COORDINATOR_ADDR=10.0.0.1:8476 SKYTPU_NUM_PROCESSES=2 \
+    SKYTPU_PROCESS_ID=0 python -m skypilot_tpu_torch.train.run \
+        --preset llama-1b --fsdp auto --batch 8 --seq 8192 --remat dots
+
+With ``$SKYTPU_WARM_INIT_CACHE`` set (no ``--ckpt-dir``, one device), the
+initialised state is restored from a snapshot there when one matches,
+and written there otherwise.
 """
 from __future__ import annotations
 
@@ -38,7 +51,7 @@ def parse_args(argv=None):
     p.add_argument('--accum', type=int, default=1)
     p.add_argument('--dp', type=int, default=1)
     p.add_argument('--fsdp', default='auto',
-                   help="int, or 'auto' = all remaining devices (1 here)")
+                   help="int, or 'auto' = all remaining devices")
     p.add_argument('--tp', type=int, default=1)
     p.add_argument('--sp', type=int, default=1)
     p.add_argument('--pp', type=int, default=1)
@@ -75,63 +88,153 @@ def synthetic_tokens(step: int, batch: int, seq: int, vocab: int,
                          device=device)
 
 
-def _check_single_device(args, num_slices: int) -> None:
-    for flag in ('dp', 'tp', 'sp', 'pp', 'ep'):
-        if getattr(args, flag) > 1:
-            raise SystemExit(f'--{flag} {getattr(args, flag)}: multi-device '
-                             'training is not yet ported to the PyTorch '
-                             'trainer (ROADMAP.md queue 1, item 8)')
-    fsdp = 1 if args.fsdp == 'auto' else int(args.fsdp)
+NOT_PORTED = 'is not yet ported to the PyTorch trainer (ROADMAP.md queue 1, ' \
+    'item 8)'
+
+
+def mesh_spec(args, n: int, num_slices: int):
+    """The mesh over ``n`` devices, sized with the JAX trainer's
+    arithmetic and messages: ``--fsdp auto`` takes every device the other
+    axes leave, ``--dcn auto`` the number of slices."""
+    from skypilot_tpu_torch.parallel import MeshSpec
     dcn = num_slices if args.dcn == 'auto' else max(1, int(args.dcn))
-    if fsdp > 1 or dcn > 1:
-        raise SystemExit(f'--fsdp {fsdp} --dcn {dcn}: multi-device training '
-                         'is not yet ported to the PyTorch trainer '
-                         '(ROADMAP.md queue 1, item 8)')
+    used = dcn * args.tp * args.sp * args.pp * args.ep * args.dp
+    if args.fsdp == 'auto':
+        if n % used:
+            raise SystemExit(
+                f'{n} devices not divisible by dcn*tp*sp*pp*ep*dp={used}')
+        fsdp = n // used
+    else:
+        fsdp = int(args.fsdp)
+        if used * fsdp != n:
+            raise SystemExit(
+                f'mesh {dcn}dcn*{args.tp}tp*{args.sp}sp*{args.pp}pp*'
+                f'{args.ep}ep*{args.dp}dp*{fsdp}fsdp = {used * fsdp} '
+                f'!= {n} devices')
+    return MeshSpec(dcn=dcn, pp=args.pp, dp=args.dp, fsdp=fsdp, ep=args.ep,
+                    sp=args.sp, tp=args.tp)
+
+
+def _check_ported(args, world: int) -> None:
+    for flag in ('sp', 'pp', 'ep'):
+        if getattr(args, flag) > 1:
+            raise SystemExit(f'--{flag} {getattr(args, flag)}: {NOT_PORTED}')
+    asked = (world > 1 or args.dp > 1 or args.tp > 1
+             or (args.fsdp != 'auto' and int(args.fsdp) > 1)
+             or (args.dcn != 'auto' and int(args.dcn) > 1))
+    if args.model == 'mixtral' and asked:
+        raise SystemExit(f'--model mixtral on a mesh of more than one '
+                         f'device {NOT_PORTED}')
+
+
+def _local_worker(argv, local_index: int, local_devices: int,
+                  coordinator: str) -> None:
+    _train(parse_args(argv), None, local_index, local_devices, coordinator)
+
+
+def local_workers(device_type: str,
+                  batch_fn: Optional[Callable[[int], Any]]) -> int:
+    """The worker processes ``main`` starts on this host: one per local
+    GPU when there are several, no process group is up yet and the batch
+    is the synthetic one. Otherwise 1: the trainer runs in the calling
+    process, in the caller's group or on the caller's batch (which a
+    spawned worker could not be handed)."""
+    import torch
+    from skypilot_tpu_torch.runtime import distributed
+    if (device_type != 'cuda' or batch_fn is not None
+            or distributed.is_initialized()):
+        return 1
+    return max(1, torch.cuda.device_count())
 
 
 def main(argv=None,
          batch_fn: Optional[Callable[[int], Any]] = None) -> Dict[str, Any]:
     """Train; returns what the log lines show, per logged step.
-    ``batch_fn(step)`` -> tokens [batch, seq] replaces the synthetic
-    tokens (a caller that wants one fixed batch)."""
-    args = parse_args(argv)
+    ``batch_fn(step)`` -> tokens [batch, seq] (the global batch) replaces
+    the synthetic tokens (a caller that wants one fixed batch).
 
+    Where ``local_workers`` says so, one worker process per GPU runs the
+    trainer (a rank each, ``runtime/distributed.py``); this process waits
+    for them and returns nothing."""
+    args = parse_args(argv)
+    from skypilot_tpu_torch.utils.device import resolve_device
+    local = local_workers(resolve_device(args.device).type, batch_fn)
+    if local == 1:
+        return _train(args, batch_fn, 0, 1, None)
+    import multiprocessing
+    import socket
+    from skypilot_tpu_torch.runtime import distributed
+    coordinator = os.environ.get(distributed.ENV_COORDINATOR_ADDR)
+    if not coordinator:  # one host: its own rendezvous
+        with socket.socket() as sock:
+            sock.bind(('127.0.0.1', 0))
+            coordinator = f'127.0.0.1:{sock.getsockname()[1]}'
+    ctx = multiprocessing.get_context('spawn')
+    procs = [ctx.Process(target=_local_worker,
+                         args=(argv, i, local, coordinator))
+             for i in range(local)]
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join()
+    codes = [proc.exitcode for proc in procs]
+    if any(codes):
+        raise SystemExit(f'[train] local workers exited with {codes}')
+    return {}
+
+
+def _train(args, batch_fn, local_index: int, local_devices: int,
+           coordinator: Optional[str]) -> Dict[str, Any]:
     from skypilot_tpu_torch import callbacks as skytpu_callback
     cb_armed = skytpu_callback.init(total_steps=args.steps)
     skytpu_callback.mark('proc_start')
-
-    from skypilot_tpu_torch.runtime import distributed
-    distributed.init()  # single process; raises for a multi-host contract
 
     import torch
 
     from skypilot_tpu_torch import accelerators
     from skypilot_tpu_torch.models import llama, mixtral
+    from skypilot_tpu_torch.parallel import make_mesh, multislice_rules
+    from skypilot_tpu_torch.runtime import distributed
     from skypilot_tpu_torch.train import CheckpointManager, Trainer
     from skypilot_tpu_torch.utils.device import resolve_device
+    device_type = resolve_device(args.device).type
+    _check_ported(args, 1)
+    # No-op for one rank; a group over the SKYTPU_* contract otherwise. A
+    # group the caller set up is used as it is, and left up at the end.
+    owns_group = not distributed.is_initialized()
+    distributed.init(coordinator, device_type=device_type,
+                     local_devices=local_devices, local_index=local_index)
+    device = resolve_device(args.device)  # this rank's card
     # The benchmark reads this mark's name as "framework ready".
     skytpu_callback.mark('jax_ready')
 
-    _check_single_device(args, distributed.num_slices())
+    n = distributed.world_size()
+    _check_ported(args, n)
+    spec = mesh_spec(args, n, distributed.num_slices())
+    mesh = make_mesh(spec, device_type)
+    rules = multislice_rules() if spec.dcn > 1 else llama.DEFAULT_RULES
     presets, model_cls = ((llama.PRESETS, llama.LlamaModel)
                           if args.model == 'llama' else
                           (mixtral.PRESETS, mixtral.MixtralModel))
     if args.preset not in presets:
         raise SystemExit(f'unknown --preset {args.preset!r}; valid: '
                          f'{sorted(presets)}')
-    device = resolve_device(args.device)
     config = presets[args.preset]
     if args.remat is not None:
         config = (dataclasses.replace(config, remat=False)
                   if args.remat == 'none' else dataclasses.replace(
                       config, remat=True, remat_policy=args.remat))
-    model = model_cls(config, device=device)
+    model = model_cls(config, device=device, mesh=mesh, rules=rules)
     trainer = Trainer(model, learning_rate=args.lr, accum_steps=args.accum)
+    is_main = distributed.rank() == 0
     peak = accelerators.peak_bf16_flops(device)
-    print(f'[train] devices=1 procs=1 device={device} model={args.preset} '
-          f'params={config.num_params/1e9:.2f}B batch={args.batch} '
-          f'seq={args.seq} remat='
-          f'{config.remat_policy if config.remat else "none"}', flush=True)
+    if is_main:
+        print(f'[train] devices={n} procs={n // local_devices} '
+              f'mesh={spec.sizes} device={device} model={args.preset} '
+              f'params={config.num_params/1e9:.2f}B batch={args.batch} '
+              f'seq={args.seq} remat='
+              f'{config.remat_policy if config.remat else "none"}',
+              flush=True)
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -142,11 +245,11 @@ def main(argv=None,
                                 save_interval_steps=args.save_every)
         state = trainer.restore_or_init(mgr, gen)
         start_step = state.step
-        if start_step:
+        if start_step and is_main:
             print(f'[train] resumed from step {start_step}', flush=True)
     else:
         warm_cache = os.environ.get('SKYTPU_WARM_INIT_CACHE')
-        if warm_cache:
+        if warm_cache and n == 1:
             state, source = trainer.init_with_warm_cache(warm_cache, gen)
             if source == 'restored':
                 print('[train] warm-init snapshot restored '
@@ -166,6 +269,7 @@ def main(argv=None,
     t_window = time.perf_counter()
     for i in range(start_step, args.steps):
         skytpu_callback.step_begin()
+        # The global batch, made alike on every rank; each keeps its rows.
         tokens = (batch_fn(i) if batch_fn is not None else
                   synthetic_tokens(i, args.batch, args.seq,
                                    config.vocab_size, device))
@@ -181,12 +285,14 @@ def main(argv=None,
             steps_done = args.log_every if i + 1 - start_step \
                 >= args.log_every else i + 1 - start_step
             tok_s = tokens_per_step * steps_done / dt
-            tflops = flops_per_step * steps_done / dt / 1e12
+            # Per device, as the JAX trainer reports TFLOP/s per chip.
+            tflops = flops_per_step * steps_done / dt / 1e12 / n
             mfu = tflops * 1e12 / peak if peak else None
             mfu_txt = f', MFU {mfu * 100:.1f}%' if peak else ''
-            print(f'[train] step {i+1}: loss {loss:.4f}, '
-                  f'{tok_s:,.0f} tok/s global '
-                  f'({tflops:.1f} TFLOP/s/chip{mfu_txt})', flush=True)
+            if is_main:
+                print(f'[train] step {i+1}: loss {loss:.4f}, '
+                      f'{tok_s:,.0f} tok/s global '
+                      f'({tflops:.1f} TFLOP/s/chip{mfu_txt})', flush=True)
             log.append({'step': i + 1, 'loss': loss,
                         'grad_norm': float(metrics['grad_norm']),
                         'seconds': dt / steps_done, 'tokens_per_s': tok_s,
@@ -196,8 +302,10 @@ def main(argv=None,
             mgr.save(state)
     if mgr is not None:
         mgr.wait()
-    print('[train] done.', flush=True)
-    distributed.shutdown()
+    if is_main:
+        print('[train] done.', flush=True)
+    if owns_group:
+        distributed.shutdown()
     return {'start_step': start_step, 'log': log, 'state': state,
             'trainer': trainer}
 

@@ -1,4 +1,5 @@
-"""Train state and train step for the port's Llama, on one device.
+"""Train state and train step for the port's Llama, on one device or a
+mesh.
 
 Counterpart of ``skypilot_tpu/train/step.py``: the same loss, the same
 optimizer (clip_by_global_norm(1.0), then AdamW with b1 0.9, b2 0.95,
@@ -6,6 +7,14 @@ eps 1e-8, weight decay 0.1 on every leaf), the same gradient
 accumulation and the same metrics. JAX donates the state to a jitted
 step; here the step updates the parameters and the optimizer state in
 place and returns a ``TrainState`` that holds the same tensors.
+
+On a mesh (the model's) each rank holds its shards of the parameters and
+of the AdamW moments and trains on its rows of the global batch
+(``shard_batch``). What GSPMD did for the JAX trainer is explicit: the
+loss is vocab-parallel and global (``cross_entropy_loss``), each leaf's
+gradient is summed over the batch axes that do not split it, and the
+clip's global norm counts every element once. Loss and grad norm are
+global, equal on every rank.
 """
 from __future__ import annotations
 
@@ -18,20 +27,60 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from skypilot_tpu_torch.models.llama import LlamaModel, Params
+from skypilot_tpu_torch.parallel import sharding
+from skypilot_tpu_torch.parallel.mesh import Mesh
+from skypilot_tpu_torch.parallel.sharding import DEFAULT_RULES, LogicalRules
+from skypilot_tpu_torch.utils.tree import unflatten
 
 MAX_GRAD_NORM = 1.0
 ADAM_B1, ADAM_B2, ADAM_EPS, WEIGHT_DECAY = 0.9, 0.95, 1e-8, 0.1
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token cross entropy; logits [B,S,V], targets [B,S]."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+                       mask: Optional[torch.Tensor] = None,
+                       mesh: Optional[Mesh] = None,
+                       rules: LogicalRules = DEFAULT_RULES) -> torch.Tensor:
+    """Mean next-token cross entropy; logits [B,S,V], targets [B,S].
+
+    On a mesh, logits are this rank's rows and vocab shard [B/b, S, V/v]
+    and targets its rows: the row max, the sum of exponentials and the
+    target's logit are each all-reduced over the vocab axes in f32 (the
+    function of ``log_softmax`` over the whole vocab; a target in another
+    rank's shard adds 0 here), and the mean is over the global batch. The
+    result is the global loss on every rank; its backward gives each rank
+    the gradient of its own rows (sum them over the batch axes)."""
+    vocab_axes = () if mesh is None else mesh.live(rules.axes('vocab'))
+    batch_axes = () if mesh is None else mesh.live(rules.axes('batch'))
+    if not vocab_axes and not batch_axes:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+        if mask is None:
+            return nll.mean()
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    x = logits.float()
+    top = sharding.all_reduce(x.detach().amax(-1, keepdim=True), mesh,
+                              vocab_axes, op=torch.distributed.ReduceOp.MAX)
+    z = x - top
+    lse = sharding.reduce_from(z.exp().sum(-1), mesh, vocab_axes).log()
+    v_local = x.shape[-1]
+    idx = targets.long() - mesh.index(vocab_axes) * v_local
+    ok = (idx >= 0) & (idx < v_local)
+    picked = z.gather(-1, idx.clamp(0, v_local - 1)[..., None])[..., 0]
+    picked = sharding.reduce_from(
+        torch.where(ok, picked, torch.zeros((), device=x.device)), mesh,
+        vocab_axes)
+    nll = lse - picked
     if mask is None:
-        return nll.mean()
-    mask = mask.float()
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        total = nll.sum()
+        count = torch.tensor(float(nll.numel() * mesh.size(batch_axes)),
+                             device=x.device)
+    else:
+        mask = mask.float()
+        total = (nll * mask).sum()
+        count = sharding.all_reduce(mask.sum(), mesh,
+                                    batch_axes).clamp(min=1.0)
+    return sharding.reduce_from(total / count, mesh, batch_axes)
 
 
 def leaf_names(params: Params) -> List[str]:
@@ -49,23 +98,20 @@ def get_leaf(tree: Params, name: str) -> Any:
 
 
 def tree_from_leaves(names: List[str], values: List[Any]) -> Params:
-    tree: Params = {}
-    for name, value in zip(names, values):
-        *parents, last = name.split('/')
-        node = tree
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[last] = value
-    return tree
+    return unflatten(dict(zip(names, values)))
 
 
 @dataclasses.dataclass
 class TrainState:
     """step, the parameter tree (leaves that require grad) and the AdamW
-    optimizer over those leaves (its moments are the JAX ``opt_state``)."""
+    optimizer over those leaves (its moments are the JAX ``opt_state``).
+    On a mesh the leaves and moments are this rank's shards, laid out by
+    ``specs`` (leaf name -> spec) over ``mesh``."""
     step: int
     params: Params
     opt_state: torch.optim.Optimizer
+    mesh: Optional[Mesh] = None
+    specs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def to_tree(self) -> Dict[str, Any]:
         """The state as a nested dict named after the JAX tree: step,
@@ -127,12 +173,13 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 class Trainer:
     """Init and train-step functions for a model, as the JAX ``Trainer``
-    builds them (without a mesh: one device)."""
+    builds them, on one device or on the model's mesh."""
 
     def __init__(self, model: LlamaModel, learning_rate: float = 3e-4,
                  accum_steps: int = 1,
                  accum_dtype: torch.dtype = torch.float32):
         self.model = model
+        self.mesh = model.mesh
         self.learning_rate = learning_rate
         # Gradient accumulation: the batch is split into `accum_steps`
         # microbatches whose grads are averaged (in accum_dtype) before
@@ -155,7 +202,8 @@ class Trainer:
                                 betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS,
                                 weight_decay=WEIGHT_DECAY)
         return TrainState(step=0, params=tree_from_leaves(names, leaves),
-                          opt_state=opt)
+                          opt_state=opt, mesh=self.mesh,
+                          specs=self.model.specs)
 
     def init_fn(self) -> Callable[[torch.Generator], TrainState]:
         """init(generator) -> TrainState: random weights drawn on the
@@ -167,19 +215,22 @@ class Trainer:
                 ) -> torch.Tensor:
         logits, aux = self.model.apply_with_aux(params, batch['tokens'])
         loss = cross_entropy_loss(logits, batch['targets'],
-                                  batch.get('mask'))
+                                  batch.get('mask'), self.mesh,
+                                  self.model.rules)
         # MoE router load-balance loss (0 weight for dense models).
         return loss + self.model.aux_loss_weight * aux
 
     def grads(self, params: Params, batch: Dict[str, torch.Tensor]
               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(loss, grads in ``leaf_names`` order), averaged over
-        ``accum_steps`` microbatches."""
-        leaves = [get_leaf(params, n) for n in leaf_names(params)]
+        ``accum_steps`` microbatches (of this rank's rows, on a mesh)."""
+        names = leaf_names(params)
+        leaves = [get_leaf(params, n) for n in names]
         accum = self.accum_steps
         if accum == 1:
             loss = self.loss_fn(params, batch)
-            return loss.detach(), list(torch.autograd.grad(loss, leaves))
+            grads = list(torch.autograd.grad(loss, leaves))
+            return loss.detach(), self._sum_over_batch(names, grads)
         rows = batch['tokens'].shape[0]
         if rows % accum:
             raise ValueError(f'batch {rows} not divisible by accum_steps '
@@ -195,13 +246,43 @@ class Trainer:
                 a.add_((g.float() / accum).to(self.accum_dtype))
             losses.append(loss.detach())
         grads = [a.to(p.dtype) for a, p in zip(acc, leaves)]
-        return torch.stack(losses).mean(), grads
+        return torch.stack(losses).mean(), self._sum_over_batch(names, grads)
+
+    def _sum_over_batch(self, names: List[str], grads: List[torch.Tensor]
+                        ) -> List[torch.Tensor]:
+        """Each leaf's gradient summed over the batch axes that do not
+        split the leaf (the split ones summed in the gather's backward),
+        so every rank holds the global gradient of its shard."""
+        if self.mesh is None:
+            return grads
+        batch = self.model.rules.axes('batch')
+        for name, g in zip(names, grads):
+            split = set(sharding.spec_axes(self.model.specs[name]))
+            sharding.all_reduce(g, self.mesh,
+                                tuple(a for a in batch if a not in split))
+        return grads
+
+    def _global_norm(self, names: List[str], grads: List[torch.Tensor]
+                     ) -> torch.Tensor:
+        """The global norm in f32, each element counted once: the squares
+        of a leaf's shard are summed over the axes that split it and not
+        over those it is replicated on."""
+        if self.mesh is None:
+            return global_norm(grads)
+        by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for name, g in zip(names, grads):
+            axes = self.mesh.live(sharding.spec_axes(self.model.specs[name]))
+            by_axes.setdefault(axes, []).append(
+                torch.linalg.vector_norm(g, dtype=torch.float32).square())
+        total = [sharding.all_reduce(torch.stack(sq).sum(), self.mesh, axes)
+                 for axes, sq in by_axes.items()]
+        return torch.stack(total).sum().sqrt()
 
     def step_fn(self) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, Any]]]:
         def step(state: TrainState, batch: Dict[str, torch.Tensor]):
             loss, grads = self.grads(state.params, batch)
-            norm = global_norm(grads)
+            norm = self._global_norm(leaf_names(state.params), grads)
             # optax.clip_by_global_norm: unchanged below the limit, else
             # g / norm * limit (no epsilon added to the norm).
             divisor = torch.where(norm < MAX_GRAD_NORM,
@@ -214,24 +295,22 @@ class Trainer:
             state.opt_state.step()
             state.opt_state.zero_grad(set_to_none=True)
             metrics = {'loss': loss, 'grad_norm': norm, 'step': state.step}
-            return TrainState(step=state.step + 1, params=state.params,
-                              opt_state=state.opt_state), metrics
+            return dataclasses.replace(state, step=state.step + 1), metrics
 
         return step
 
     def warm_cache_key(self) -> str:
         """Cache key for the warm-init snapshot: everything that changes
         the init result or its shapes (model config and class,
-        accumulation, device type and count, torch version)."""
-        device = self.model.device
+        accumulation, device type, the world's size, torch version)."""
+        from skypilot_tpu_torch.runtime import distributed
         payload = json.dumps({
             'config': {k: str(v) for k, v in
                        dataclasses.asdict(self.model.config).items()},
             'model': type(self.model).__name__,
             'accum_steps': self.accum_steps,
-            'device': device.type,
-            'n_devices': (torch.cuda.device_count() if device.type == 'cuda'
-                          else 1),
+            'device': self.model.device.type,
+            'n_devices': distributed.world_size(),
             'torch': torch.__version__,
         }, sort_keys=True)
         return hashlib.sha256(payload.encode()).hexdigest()[:16]
@@ -244,7 +323,7 @@ class Trainer:
         skips the init. On a miss, init normally and write the snapshot
         (``train/checkpoint.py``: a temp name renamed into place); a
         failed write is printed, not raised. Returns (state,
-        'restored' | 'initialized'). One device, as the whole trainer."""
+        'restored' | 'initialized'). One device only, as in JAX."""
         from skypilot_tpu_torch.train.checkpoint import CheckpointManager
         path = os.path.join(os.path.expanduser(cache_dir),
                             self.warm_cache_key())
@@ -273,5 +352,17 @@ class Trainer:
 
     def shard_batch(self, batch: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
-        """One device: the batch as it is (it is made on the device)."""
-        return batch
+        """This rank's rows of the global batch ('batch' -> the rules'
+        batch axes); the batch as it is on one device."""
+        if self.mesh is None:
+            return batch
+        axes = self.mesh.live(self.model.rules.axes('batch'))
+        n, i = self.mesh.size(axes), self.mesh.index(axes)
+        out = {}
+        for key, value in batch.items():
+            if value.shape[0] % n:
+                raise ValueError(f'global batch {value.shape[0]} not '
+                                 f'divisible by {n} batch shards {axes}')
+            rows = value.shape[0] // n
+            out[key] = value[i * rows:(i + 1) * rows]
+        return out

@@ -330,9 +330,14 @@ def test_run_main_synthetic_tokens_are_seeded_per_step():
 
 @pytest.mark.parametrize('extra,match', [
     (['--ep', '2'], 'not yet ported'),
-    (['--tp', '2'], 'not yet ported'),
-    (['--fsdp', '4'], 'not yet ported'),
+    (['--tp', '2', '--fsdp', '1'], '!= 1 devices'),
+    (['--fsdp', '4'], '!= 1 devices'),
     (['--preset', 'nope'], 'unknown --preset'),
+    (['--sp', '2'], 'not yet ported'),
+    (['--pp', '2'], 'not yet ported'),
+    (['--model', 'mixtral', '--preset', 'test-tiny-moe', '--fsdp', '2'],
+     'not yet ported'),
+    (['--tp', '2'], r'1 devices not divisible by dcn\*tp\*sp\*pp\*ep\*dp=2'),
 ])
 def test_run_main_refuses_what_is_not_ported(extra, match):
     with pytest.raises(SystemExit, match=match):
