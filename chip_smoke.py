@@ -18,9 +18,11 @@ Phases, each printing one JSON object per line:
   kernel  each kernel against its plain PyTorch version on the card, with
           stated tolerances, and timed beside its bound, its plain
           version and the PyTorch library call that computes the same
-          function. Times are device time: the kernels' durations from
-          torch.profiler (CUPTI), averaged over the calls, with CUDA
-          events around the loop of calls beside them. With --parent, the
+          function, at the shapes every phase gives it (the sp 2 ring's
+          blocks among them: b 4 x 4096 x 4096, causal and full). Times
+          are device time: the kernels' durations from torch.profiler
+          (CUPTI), averaged over the calls, with CUDA events around the
+          loop of calls beside them. With --parent, the
           kernels of another checkout (e.g. a `git archive` of an earlier
           commit) are built from its csrc/ and timed on the same inputs;
   train   the launchable trainer (train.run.main) at llama-1b full width
@@ -40,12 +42,14 @@ Phases, each printing one JSON object per line:
           it over gloo with CUDA tensors, as NCCL refuses two ranks on
           one device), each through train.run, llama-1b at full width
           and depth, remat 'dots', the train phase's batch and init, on
-          the meshes {fsdp: 2} and {tp: 2} (global batch 4 both): losses
-          and grad norms against the one-device trainer, each
-          re-assembled leaf's change from the init against the one-device
-          run's, K1/K2 launches per rank, peak memory per rank, ms per
-          step (two ranks on one card, collectives through the host: not
-          a multi-GPU number); the collectives bench at world 2;
+          the meshes {fsdp: 2}, {tp: 2}, {sp: 2} (ring attention, K1/K2
+          per visited block) and {pp: 2} (GPipe stages, 2 microbatches),
+          global batch 4 each: losses and grad norms against the
+          one-device trainer, each re-assembled leaf's change from the
+          init against the one-device run's, K1/K2 launches per rank
+          against ``mesh_launches``, peak memory per rank, ms per step
+          (two ranks on one card, collectives through the host: not a
+          multi-GPU number); the collectives bench at world 2;
   serve   the generation-server replica at llama3-8b full width (random
           weights from a seed, bf16, paged KV, speculative decode) behind
           its HTTP surface: greedy /generate requests, a prefix-cache hit,
@@ -166,8 +170,27 @@ POLICY_CALLS = 5  # timed forward + backward calls per policy
 # left unchanged; its change reads 1.0 against the one-device run's.
 MESH_STEPS = 3
 MESH_UPDATE_RTOL = 0.5
-MESH_RUNS = (('fsdp2', ['--fsdp', '2']), ('tp2', ['--tp', '2', '--fsdp', '1']))
+MESH_RUNS = (('fsdp2', ['--fsdp', '2']), ('tp2', ['--tp', '2', '--fsdp', '1']),
+             ('sp2', ['--sp', '2', '--fsdp', '1']),
+             ('pp2', ['--pp', '2', '--fsdp', '1']))
+# sp 2: rank r holds block r of every sequence (b 4 x 4096) and attends
+# to r + 1 ring blocks per layer, the diagonal one causal and the earlier
+# one full: K1 and K2 at b 4 x 4096 x 4096, 16/8 heads. pp 2: each rank
+# runs 8 layers on 2 microbatches of b 2 x 8192 (the fsdp 2 shape).
+RING_B, RING_SEQ = TRAIN_B, TRAIN_SEQ // 2
 MESH_TIMEOUT_S = 600
+
+
+def mesh_launches(name: str, rank: int, layers: int) -> dict:
+    """K1 and K2 launches of one rank's MESH_STEPS steps on mesh
+    ``name`` under 'dots' (its recompute keeps K1's outputs): one each per
+    layer and step, times the ring blocks rank r of sp 2 visits (r + 1),
+    or over pp 2's half of the layers times its 2 microbatches."""
+    per_layer = {'sp2': rank + 1}.get(name, 1)
+    n = MESH_STEPS * layers * per_layer
+    return {'flash_fwd': n, 'flash_bwd': n}
+
+
 # Mixtral-8x7B at full width (skypilot_tpu/models/mixtral.py:81-85: embed
 # 4096, 32/8 heads, 8 experts top-2, expert mlp 14336, capacity factor
 # 1.25), its depth cut. serve_moe: 32 -> 16 layers (all 32 are 93.4 GB in
@@ -355,6 +378,20 @@ def phase_kernel(ctx) -> None:
         if not rec['ok']:
             failures.append(rec)
         del q, k, v
+    # K1 at the sp 2 ring's block shapes: the diagonal block causal, the
+    # earlier one full (b 4 x 4096 x 4096, 16/8 heads).
+    for causal in (True, False):
+        q, k, v = _qkv(gen, RING_B, RING_SEQ, RING_SEQ, TRAIN_HQ, TRAIN_HKV,
+                       HEAD_DIM)
+        rec = check_flash_fwd(q, k, v, causal, _fwd_by_kv_head)
+        rec.update(time_flash(ctx, q, k, v, HEAD_DIM ** -0.5, sets=2,
+                              plain=_fwd_by_kv_head, causal=causal),
+                   ring_block='diagonal' if causal else 'earlier')
+        emit(rec)
+        worst = max(worst, rec['out_max_abs_err'])
+        if not rec['ok']:
+            failures.append(rec)
+        del q, k, v
     # K1 at the train_moe shape (mixtral-8x7b heads, batch 1 x 4096).
     q, k, v = _qkv(gen, MOE_TRAIN_B, MOE_TRAIN_SEQ, MOE_TRAIN_SEQ, HQ, HKV,
                    HEAD_DIM)
@@ -414,6 +451,9 @@ MESH_KERNEL_SHAPES = ((TRAIN_B // 2, TRAIN_HQ, TRAIN_HKV),
                       (TRAIN_B, TRAIN_HQ // 2, TRAIN_HKV // 2))
 BWD_CASES += [Case(b, TRAIN_SEQ, TRAIN_SEQ, True, HEAD_DIM, hq, hkv)
               for b, hq, hkv in MESH_KERNEL_SHAPES]
+# The sp 2 ring's blocks: diagonal (causal) and earlier (full).
+BWD_CASES += [Case(RING_B, RING_SEQ, RING_SEQ, causal, HEAD_DIM, TRAIN_HQ,
+                   TRAIN_HKV) for causal in (True, False)]
 
 
 def _qkv(gen, b, sq, sk, hq, hkv, d):
@@ -532,18 +572,24 @@ def check_flash_bwd(ctx, gen):
             failures.append(rec)
         del q, k, v, dout, out, lse, got, want
     ctx['flash_bwd'] = {'max_abs_err': worst}
-    # Timed at the train phase's shape, at train_moe's and at
-    # train_mesh's per-rank shapes.
-    for key, (b, s, hq, hkv) in (
-            ('flash_bwd_timing', (TRAIN_B, TRAIN_SEQ, TRAIN_HQ, TRAIN_HKV)),
-            ('flash_bwd_timing_moe', (MOE_TRAIN_B, MOE_TRAIN_SEQ, HQ, HKV))
-    ) + tuple((('flash_bwd_timing_mesh', b, hq), (b, TRAIN_SEQ, hq, hkv))
-              for b, hq, hkv in MESH_KERNEL_SHAPES):
-        timing = time_flash_bwd(ctx, b, s, hq, hkv)
+    # Timed at the train phase's shape, at train_moe's, at train_mesh's
+    # per-rank shapes and at the sp 2 ring's block shapes.
+    for key, (b, s, hq, hkv, causal) in (
+            ('flash_bwd_timing', (TRAIN_B, TRAIN_SEQ, TRAIN_HQ, TRAIN_HKV,
+                                  True)),
+            ('flash_bwd_timing_moe', (MOE_TRAIN_B, MOE_TRAIN_SEQ, HQ, HKV,
+                                      True))
+    ) + tuple((('flash_bwd_timing_mesh', b, hq),
+               (b, TRAIN_SEQ, hq, hkv, True))
+              for b, hq, hkv in MESH_KERNEL_SHAPES) + tuple(
+            (('flash_bwd_timing_ring', causal),
+             (RING_B, RING_SEQ, TRAIN_HQ, TRAIN_HKV, causal))
+            for causal in (True, False)):
+        timing = time_flash_bwd(ctx, b, s, hq, hkv, causal)
         ctx[key] = timing
         emit({'phase': 'kernel', 'kernel': 'flash_bwd', 'b': b, 'sq': s,
               'sk': s, 'hq': hq, 'hkv': hkv, 'head_dim': HEAD_DIM,
-              'causal': True, **timing})
+              'causal': causal, **timing})
     return failures
 
 
@@ -592,9 +638,10 @@ def _parent_ms(ctx, fn, iters):
         return time_device(fn, iters)[0]
 
 
-def time_flash_bwd(ctx, b, s, hq, hkv):
-    """K2 / plain / library at one causal shape (the train phase's: b 4,
-    8192, 16/8 heads; train_moe's: b 1, 4096, 32/8), inputs rotating over
+def time_flash_bwd(ctx, b, s, hq, hkv, causal=True):
+    """K2 / plain / library at one shape (the train phase's: b 4, 8192,
+    16/8 heads, causal; train_moe's: b 1, 4096, 32/8; the ring's blocks,
+    causal and full), inputs rotating over
     two copies (each more bytes than L2). The library call is PyTorch's
     flash-attention backward
     (aten._scaled_dot_product_flash_attention_backward) on KV repeated to
@@ -610,16 +657,16 @@ def time_flash_bwd(ctx, b, s, hq, hkv):
     for _ in range(2):
         q, k, v = _qkv(gen, b, s, s, hq, hkv, d)
         dout = _qkv(gen, b, s, s, hq, hkv, d)[0]
-        out, lse = attn.flash_attention_fwd(q, k, v, True, scale)
+        out, lse = attn.flash_attention_fwd(q, k, v, causal, scale)
         sets.append((q, k, v, out, lse, dout))
     turn = itertools.count()
 
     def kernel():
-        attn.flash_attention_bwd(*sets[next(turn) % 2], True, scale)
+        attn.flash_attention_bwd(*sets[next(turn) % 2], causal, scale)
 
     kernel_ms, kernel_event_ms = time_device(kernel, iters=10)
     parent_ms = _parent_ms(ctx, kernel, iters=10)
-    plain_ms = time_device(lambda: _bwd_by_kv_head(*sets[0], True, scale),
+    plain_ms = time_device(lambda: _bwd_by_kv_head(*sets[0], causal, scale),
                            iters=2, warmup=1)[0]
     lib_sets = []
     for q, k, v, _, _, dout in sets:
@@ -627,18 +674,19 @@ def time_flash_bwd(ctx, b, s, hq, hkv):
         kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
         vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
         fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-            qt, kt, vt, 0.0, True, False, scale=scale)
+            qt, kt, vt, 0.0, causal, False, scale=scale)
         lib_sets.append((dot, qt, kt, vt, fwd[:8]))
 
     def library():
         dot, qt, kt, vt, fwd = lib_sets[next(turn) % 2]
         out, lse, cq, ck, mq, mk, seed, offset = fwd
         torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed,
+            dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, causal, seed,
             offset, scale=scale)
 
     library_ms, library_event_ms = time_device(library, iters=10)
-    bound_ms, bound_by = flash_bwd_bound_ms(b, s, s, hq, hkv, d, True, ctx)
+    bound_ms, bound_by = flash_bwd_bound_ms(b, s, s, hq, hkv, d, causal,
+                                            ctx)
     return {'kernel_ms': kernel_ms, 'kernel_event_ms': kernel_event_ms,
             'parent_ms': parent_ms, 'plain_ms': plain_ms,
             'library_ms': library_ms, 'library_event_ms': library_event_ms,
@@ -647,8 +695,8 @@ def time_flash_bwd(ctx, b, s, hq, hkv):
             'bound_ms': bound_ms, 'bound_by': bound_by, 'card': ctx['smi']}
 
 
-def time_flash(ctx, q, k, v, scale, sets=L2_SETS, plain=None):
-    """kernel / plain / SDPA device times at one causal sq == sk shape
+def time_flash(ctx, q, k, v, scale, sets=L2_SETS, plain=None, causal=True):
+    """kernel / plain / SDPA device times at one sq == sk shape
     (and the parent checkout's kernel, with --parent). The kernel and
     SDPA take their turns over ``sets`` copies of the inputs, more bytes
     than the 50 MB L2 holds, so each call finds its q/k/v in HBM as a
@@ -665,25 +713,25 @@ def time_flash(ctx, q, k, v, scale, sets=L2_SETS, plain=None):
 
     def kernel():
         qi, ki, vi = copies[next(turn) % sets]
-        attn.flash_attention_fwd(qi, ki, vi, True, scale)
+        attn.flash_attention_fwd(qi, ki, vi, causal, scale)
 
     def sdpa():
         qi, ki, vi = (t.transpose(1, 2) for t in copies[next(turn) % sets])
-        F.scaled_dot_product_attention(qi, ki, vi, is_causal=True,
+        F.scaled_dot_product_attention(qi, ki, vi, is_causal=causal,
                                        scale=scale, enable_gqa=True)
 
     iters = 48 if sq <= 2048 else 10
     kernel_ms, kernel_event_ms = time_device(kernel, iters)
     parent_ms = _parent_ms(ctx, kernel, iters)
-    plain_ms = time_device(lambda: plain(q, k, v, True, scale),
+    plain_ms = time_device(lambda: plain(q, k, v, causal, scale),
                            iters=5 if sq <= 2048 else 2, warmup=1)[0]
     library_ms, library_event_ms = time_device(sdpa, iters)
-    bound_ms, bound_by = flash_bound_ms(b, sq, sk, hq, hkv, d, True, ctx)
+    bound_ms, bound_by = flash_bound_ms(b, sq, sk, hq, hkv, d, causal, ctx)
     timing = {'kernel_ms': kernel_ms, 'kernel_event_ms': kernel_event_ms,
               'parent_ms': parent_ms, 'plain_ms': plain_ms,
               'library_ms': library_ms, 'library_event_ms': library_event_ms,
               'bound_ms': bound_ms, 'bound_by': bound_by, 'card': ctx['smi']}
-    ctx.setdefault('flash_timing', {})[(b, sq, hq)] = timing
+    ctx.setdefault('flash_timing', {})[(b, sq, hq, causal)] = timing
     return timing
 
 
@@ -914,6 +962,12 @@ def phase_train_mesh(ctx) -> None:
         probes = [mp_ctx.Process(target=_nccl_probe_rank,
                                  args=(rank, probe_port, tmp))
                   for rank in range(2)]
+        # How gloo moves a CUDA tensor from one rank to the other.
+        p2p_port = _free_port()
+        p2p_probes = [mp_ctx.Process(target=_gloo_p2p_probe_rank,
+                                     args=(rank, p2p_port, tmp))
+                      for rank in range(2)]
+        probes += p2p_probes
         for proc in probes:
             proc.start()
         want = ctx.get('train_losses')
@@ -956,16 +1010,19 @@ def phase_train_mesh(ctx) -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-        probe = _join_all(probes, 120)
+        probe = _join_all(probes[:2], 120)
+        p2p = _join_all(p2p_probes, 60)
         for rank in range(2):
-            path = os.path.join(tmp, f'nccl{rank}.json')
-            if os.path.exists(path):
-                with open(path) as f:
-                    probe[f'rank{rank}'] = json.load(f)
+            for name, rec in (('nccl', probe), ('p2p', p2p)):
+                path = os.path.join(tmp, f'{name}{rank}.json')
+                if os.path.exists(path):
+                    with open(path) as f:
+                        rec[f'rank{rank}'] = json.load(f)
         nccl_ok = all(probe.get(f'rank{r}', {}).get('ok') for r in range(2))
         backend = 'nccl' if nccl_ok else 'gloo'
         emit({'phase': 'train_mesh', 'check': 'two_ranks_on_one_card',
-              'nccl': probe, 'backend': backend, 'card': ctx['smi']})
+              'nccl': probe, 'backend': backend, 'gloo_p2p': p2p,
+              'card': ctx['smi']})
 
         # Two ranks on the card.
         port = _free_port()
@@ -988,10 +1045,8 @@ def phase_train_mesh(ctx) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
     layers = cfg.num_layers
-    per_rank = {'flash_fwd': MESH_STEPS * layers,
-                'flash_bwd': MESH_STEPS * layers}
     faults = []
-    mesh_launches = dict(launches)
+    phase_launches = dict(launches)
     for name, _ in MESH_RUNS:
         recs = [r[name] for r in ranks]
         got = recs[0]
@@ -1011,19 +1066,23 @@ def phase_train_mesh(ctx) -> None:
                'update_rtol': MESH_UPDATE_RTOL,
                'unmoved_leaves': got['unmoved'],
                'launches_per_rank': [r['launches'] for r in recs],
+               'launches_predicted': [mesh_launches(name, rank, layers)
+                                      for rank in range(2)],
                'peak_mem_gb_per_rank': [r['peak_mem_gb'] for r in recs],
                'ms_per_step': got['ms_per_step'],
                'ms_per_step_one_device': ref['ms_per_step'],
+               'run_s': got['run_s'],
                'ms_note': 'two ranks share one card (collectives through '
                           'the host under gloo): not a multi-GPU number',
                'card': ctx['smi']}
         emit(rec)
         for r in recs:
             for k, n in r['launches'].items():
-                mesh_launches[k] += n
+                phase_launches[k] += n
         if (max(loss_rel) > GATE_LOSS_RTOL or max(norm_rel) > GATE_GRAD_RTOL
                 or max(got['update_rel_l2'].values()) > MESH_UPDATE_RTOL
-                or any(r['launches'] != per_rank for r in recs)
+                or any(r['launches'] != mesh_launches(name, rank, layers)
+                       for rank, r in enumerate(recs))
                 or any(r['losses'] != got['losses'] for r in recs)):
             faults.append(name)
     emit({'phase': 'train_mesh', 'check': 'collectives_bench', 'ranks': 2,
@@ -1031,7 +1090,7 @@ def phase_train_mesh(ctx) -> None:
           'note': 'two ranks on one card through the host: not an '
                   'interconnect number', 'wall_s': wall_s,
           'card': ctx['smi']})
-    ctx['mesh_launches'] = mesh_launches
+    ctx['mesh_launches'] = phase_launches
     if faults:
         raise RuntimeError(f'train_mesh runs off the one-device trainer: '
                            f'{faults}')
@@ -1080,6 +1139,47 @@ def _nccl_probe_rank(rank: int, port: int, out_dir: str) -> None:
         json.dump(rec, f)
 
 
+def _gloo_p2p_probe_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of two gloo ranks with CUDA tensors, on card ``rank`` mod the
+    cards there are: the exchange that ring attention and the pipeline
+    make (``sharding.ring_shift``, one ``all_to_all_single`` with split
+    sizes) of 64 MiB of bf16, checked and timed; then ``isend``/``irecv``
+    of a CUDA tensor, last, since a failure there breaks the pair.
+    Outcomes to out_dir."""
+    import torch
+    import torch.distributed as dist
+    from skypilot_tpu_torch.parallel import MeshSpec, make_mesh, sharding
+    from skypilot_tpu_torch.runtime import distributed
+    distributed.init(f'127.0.0.1:{port}', 2, rank, device_type='cuda',
+                     backend='gloo', timeout_s=30)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    mesh = make_mesh(MeshSpec(sp=2), 'cuda')
+    x = torch.full((32 << 20,), float(rank + 1), dtype=torch.bfloat16,
+                   device='cuda')
+    rec = {'shift_mib': 64, 'shift_ms': []}
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = sharding.ring_shift(x, mesh, 'sp')
+        torch.cuda.synchronize()
+        rec['shift_ms'].append((time.perf_counter() - t0) * 1e3)
+    rec['shift_ok'] = bool((y == float(2 - rank)).all())
+    small = x[:8].clone()
+    got = torch.zeros_like(small)
+    try:
+        works = [dist.isend(small, 1 - rank), dist.irecv(got, 1 - rank)]
+        for work in works:
+            work.wait()
+        torch.cuda.synchronize()
+        rec['send_recv'] = ('ok' if bool((got == float(2 - rank)).all())
+                            else 'wrong values')
+    except RuntimeError as e:  # the refusal is the finding
+        rec['send_recv'] = f'{type(e).__name__}: {str(e).splitlines()[0]}'
+    with open(os.path.join(out_dir, f'p2p{rank}.json'), 'w') as f:
+        json.dump(rec, f)
+    distributed.shutdown()
+
+
 def _mesh_rank(rank: int, port: int, backend: str, ref: dict,
                out_dir: str) -> None:
     """One of the two ranks, on card ``rank`` mod the cards there are
@@ -1106,9 +1206,11 @@ def _mesh_rank(rank: int, port: int, backend: str, ref: dict,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         attn.reset_launch_counts()
+        t0 = time.perf_counter()
         res = run.main(TRAIN_ARGV + ['--remat', 'dots', '--steps',
                                      str(MESH_STEPS)] + flags,
                        batch_fn=lambda step: fixed)
+        run_s = time.perf_counter() - t0
         launches = dict(attn.LAUNCHES)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         full = res['trainer'].model.full_params(res['state'].params)
@@ -1128,6 +1230,7 @@ def _mesh_rank(rank: int, port: int, backend: str, ref: dict,
                      'grad_norms': [r['grad_norm'] for r in res['log']],
                      'ms_per_step': _ms_per_step(res['log']),
                      'launches': launches, 'peak_mem_gb': peak_gb,
+                     'run_s': run_s,
                      'update_rel_l2': rel, 'unmoved': unmoved}
         del res, full
     out['bench'] = collectives_bench.run_bench(
@@ -2448,10 +2551,10 @@ def kernels_line(ctx):
     """K1 timed at the serve path's largest prefill (1536, llama3-8b
     heads), K2 at the train shape; launches summed over the serve,
     serve_modes, train, train_mesh (the contract run and both ranks'
-    runs), serve_moe and train_moe runs (each read from
+    runs on every mesh), serve_moe and train_moe runs (each read from
     counts zeroed just before it), and listed by phase. Every time is
     device time (``time_device``)."""
-    fwd = ctx['flash_timing'][(1, 1536, HQ)]
+    fwd = ctx['flash_timing'][(1, 1536, HQ, True)]
     bwd = ctx['flash_bwd_timing']
     by_phase = {'serve': {'flash_fwd': ctx['flash_launches'],
                           'flash_bwd': 0},

@@ -21,8 +21,12 @@ gathered where they are used (inside the checkpointed layer, so remat
 gathers them again); q/k/v, gate and up column-parallel over tp (K1 and
 K2 see ``Hq/tp`` and ``Hkv/tp`` heads), ``wo`` and ``w_down``
 row-parallel with an all-reduce; the f32 lm head's logits sharded over
-the vocab, as JAX's ``act_vocab`` -> tp. Pipeline stages (pp), ring
-attention (sp) and experts (ep) are not ported yet.
+the vocab, as JAX's ``act_vocab`` -> tp. With ``sp`` > 1 each rank holds
+a block of every sequence, its rotary positions are global, and
+attention is ``parallel/ring_attention.py`` (K1/K2 per visited block);
+with ``pp`` > 1 the ``layers`` dim is split over ``pp`` and the layer
+stack runs as GPipe stages (``parallel/pipeline.py``). Not both at once,
+as in JAX; experts (ep) are not ported yet.
 """
 from __future__ import annotations
 
@@ -42,6 +46,8 @@ from skypilot_tpu_torch.ops.layers import (apply_rotary, precompute_rotary,
                                            rms_norm)
 from skypilot_tpu_torch.parallel import sharding
 from skypilot_tpu_torch.parallel.mesh import Mesh, as_axes
+from skypilot_tpu_torch.parallel.pipeline import pipeline
+from skypilot_tpu_torch.parallel.ring_attention import ring_attention
 from skypilot_tpu_torch.parallel.sharding import DEFAULT_RULES, LogicalRules
 from skypilot_tpu_torch.utils.device import DeviceLike, resolve_device
 from skypilot_tpu_torch.utils.tree import flatten, unflatten
@@ -71,8 +77,8 @@ class LlamaConfig:
     # 'names' / 'names_qkv' / 'names_offload' keep the tagged activations
     # of REMAT_NAMES (the last one on the host for two of them).
     remat_policy: str = 'full'
-    # Pipeline microbatches when the mesh has pp > 1 (pipeline stages are
-    # not ported; kept so configs carry over field by field).
+    # Pipeline microbatches when the mesh has pp > 1 (None: one per stage,
+    # the fewest that keep every stage busy).
     pp_microbatches: Optional[int] = None
 
     @property
@@ -206,6 +212,9 @@ class LlamaModel(nn.Module):
         # A mesh of one device is no mesh: the one-device path, unchanged.
         self.mesh = mesh if mesh is not None and mesh.num_devices > 1 \
             else None
+        if self.mesh is not None and self.mesh.shape['pp'] > 1:
+            # Stage-major layers: each pp rank holds its stage's layers.
+            rules = rules.with_overrides(layers='pp')
         self.rules = rules
         shapes = self._param_shapes()
         self.specs: Dict[str, Tuple] = {}
@@ -244,12 +253,16 @@ class LlamaModel(nn.Module):
 
     @staticmethod
     def _check_mesh(mesh: Mesh, rules: LogicalRules) -> None:
-        """The axes this slice ports: dp, fsdp, tp and dcn."""
-        for axis in ('pp', 'sp', 'ep'):
-            if mesh.shape[axis] > 1:
-                raise NotImplementedError(
-                    f'mesh axis {axis}={mesh.shape[axis]} is not yet ported '
-                    'to the PyTorch model (ROADMAP.md queue 1, item 8)')
+        """The axes this port takes: dp, fsdp, tp, dcn, sp (ring
+        attention) and pp (pipeline stages), not sp with pp."""
+        if mesh.shape['ep'] > 1:
+            raise NotImplementedError(
+                f'mesh axis ep={mesh.shape["ep"]} is not yet ported to the '
+                'PyTorch model (ROADMAP.md queue 1, item 8)')
+        if mesh.shape['pp'] > 1 and mesh.shape['sp'] > 1:
+            raise NotImplementedError('pp > 1 with sp > 1 is not supported '
+                                      'yet; use ring attention without '
+                                      'pipeline stages or vice versa')
         # Weight dims split over batch axes are gathered where used (fsdp);
         # the head, mlp and vocab dims split over the tensor-parallel axes
         # stay split. Other layouts GSPMD would take are not ported.
@@ -267,6 +280,10 @@ class LlamaModel(nn.Module):
             raise NotImplementedError(
                 f'embed axes {rules.axes("embed")} outside the batch axes '
                 f'{sorted(batch)} are not supported')
+        seq = mesh.live(rules.axes('seq'))
+        if set(seq) & (batch | set(tp)):
+            raise NotImplementedError(f'sequence axes {seq} also shard the '
+                                      'batch or the heads')
 
     def logical_axes(self) -> Params:
         return logical_axes(self.config)
@@ -292,8 +309,9 @@ class LlamaModel(nn.Module):
         dtype one layer at a time, so an 8 B model never exists in f32;
         norm weights are ones. The distributions of the JAX ``init``; the
         bits differ (another generator). On a mesh each full draw is made
-        and this rank keeps its shard, so every mesh starts from the bits
-        of the one-device init with the same seed."""
+        and this rank keeps its shard (of every layer, its own layers when
+        pp splits them), so every mesh starts from the bits of the
+        one-device init with the same seed."""
         shapes = self._param_shapes()
         tree = self.params()
 
@@ -302,15 +320,18 @@ class LlamaModel(nn.Module):
                 param.fill_(1.0)
                 return
             spec = self.specs.get(name, ())
-            if len(shape) > 2:  # one draw per layer; 'layers' is unsplit
-                rows, shape, spec = param, shape[1:], spec[1:]
+            if len(shape) > 2:  # one draw per layer, every layer in order
+                mine = (sharding.dim_slices(shape, spec, self.mesh)[0]
+                        if self.mesh is not None else slice(0, shape[0]))
+                count, shape, spec = shape[0], shape[1:], spec[1:]
             else:
-                rows = param[None]
-            for row in rows:
+                param, mine, count = param[None], slice(0, 1), 1
+            for index in range(count):
                 draw = torch.randn(shape, dtype=torch.float32,
                                    device=self.device, generator=generator)
-                row.copy_(sharding.local_shard(draw * fan_in ** -0.5, spec,
-                                               self.mesh))
+                if mine.start <= index < mine.stop:
+                    param[index - mine.start].copy_(sharding.local_shard(
+                        draw * fan_in ** -0.5, spec, self.mesh))
 
         fill(tree['embed'], 'embed', *shapes['embed'])
         fill(tree['final_norm'], 'final_norm', *shapes['final_norm'])
@@ -470,14 +491,29 @@ class LlamaModel(nn.Module):
         split with one ``unbind`` per call, whose backward is one
         ``stack``, so no layer allocates a full-size zero gradient.
 
-        On a mesh, ``tokens`` are this rank's rows [B/batch, S] and the
-        logits are [B/batch, S, V/tp]: this rank's vocab shard."""
+        On a mesh, ``tokens`` are this rank's rows and sequence block
+        [B/batch, S/seq] and the logits are [B/batch, S/seq, V/tp]: this
+        rank's vocab shard. Default positions are the block's global
+        ones. With sp > 1 attention is the ring over the sequence axes;
+        with pp > 1 the layers run as pipeline stages
+        (``_apply_pipelined``)."""
         c = self.config
         dev = tokens.device
+        seq_axes = (self.mesh.live(self.rules.axes('seq'))
+                    if self.mesh is not None else ())
         if positions is None:
-            positions = torch.arange(tokens.shape[1], device=dev)
+            s_local = tokens.shape[1]
+            start = self.mesh.index(seq_axes) * s_local if seq_axes else 0
+            positions = start + torch.arange(s_local, device=dev)
         cos, sin = precompute_rotary(c.head_dim, c.max_seq_len,
                                      c.rope_theta, device=dev)
+
+        def attend(q, k, v):
+            if seq_axes:
+                return ring_attention(q, k, v, self.mesh, seq_axes,
+                                      causal=True)
+            return attention_ops.attention(q, k, v, causal=True,
+                                           force_impl=force_impl)
 
         names = list(params['layers'])
 
@@ -485,8 +521,7 @@ class LlamaModel(nn.Module):
             lp = {name: self._use(f'layers/{name}', value, layer=True)
                   for name, value in zip(names, values)}
             q, k, v = self._qkv(lp, x, cos, sin, positions, tag)
-            attn = attention_ops.attention(q, k, v, causal=True,
-                                           force_impl=force_impl)
+            attn = attend(q, k, v)
             if tag is not None:
                 attn = tag('attn_out', attn)
             x = x + self._attn_out(lp, attn)
@@ -494,18 +529,52 @@ class LlamaModel(nn.Module):
             return x + delta, aux
 
         layer = _maybe_remat(layer, c)
-        stacked = [params['layers'][name].unbind(0) for name in names]
+
+        def stack(x, layers):
+            """The layers of ``layers`` ([n, ...] leaves) in turn -> (x,
+            the sum of their aux)."""
+            values = [layers[name].unbind(0) for name in names]
+            aux = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(len(values[0])):
+                x, layer_aux = layer(x, *(v[i] for v in values))
+                aux = aux + layer_aux
+            return x, aux
+
         x = embed_lookup(params['embed'], tokens, self.mesh,
                          self.rules).to(c.dtype)
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(c.num_layers):
-            x, layer_aux = layer(x, *(values[i] for values in stacked))
-            aux = aux + layer_aux
+        if self.mesh is not None and self.mesh.shape['pp'] > 1:
+            x, aux = self._apply_pipelined(params['layers'], x, stack)
+        else:
+            x, aux = stack(x, params['layers'])
+            aux = aux / c.num_layers
         x = rms_norm(x, params['final_norm'], c.norm_eps)
         # f32 operands: f32-accurate logits, as ``apply`` (on a mesh the
         # tp all-reduce of x's gradient is in f32 too).
         logits = self._tp_in(x.float()) @ self._head(params).float()
-        return logits, aux / c.num_layers
+        return logits, aux
+
+    def _apply_pipelined(self, layers: Params, x: torch.Tensor,
+                         stack: Callable) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+        """The layer stack as ``pp`` pipeline stages (JAX
+        ``_apply_pipelined``): this rank's ``[L/pp, ...]`` layers are its
+        stage, run by ``stack`` on each microbatch (remat per layer, as
+        on one device). x is replicated over pp and enters stage 0 only,
+        so it passes ``copy_to`` (every pp rank gets its whole gradient).
+        aux: the stage means, summed over the live ticks and pp and
+        divided by the microbatches (``pipeline``), then by pp: the mean
+        over layers."""
+        pp = self.mesh.shape['pp']
+
+        def stage_fn(local, h):
+            h, aux = stack(h, local)
+            return h, aux / (self.config.num_layers // pp)
+
+        x = sharding.copy_to(x, self.mesh, 'pp')
+        out, aux = pipeline(stage_fn, layers, x, mesh=self.mesh, axis='pp',
+                            num_microbatches=self.config.pp_microbatches,
+                            with_aux=True)
+        return out, aux / pp
 
     # -- decode oracle -------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Params:

@@ -22,6 +22,10 @@ model calls the collectives itself, as autograd functions:
   every rank holds whole).
 - ``all_gather_rows`` / ``all_to_all``: the embedding's token gather and
   row/feature exchange (``ops/embedding.py``).
+- ``ppermute`` / ``send_recv``: a tensor moved a fixed number of places
+  along a mesh axis (``lax.ppermute``; the backward is the reverse
+  shift), and the scheduled exchanges of ring attention and the
+  pipeline (``parallel/ring_attention.py``, ``parallel/pipeline.py``).
 
 Convention: a tensor replicated over an axis carries its whole gradient
 on every rank of that axis; a leaf's gradient is summed over the batch
@@ -298,3 +302,61 @@ def reduce_from(x: torch.Tensor, mesh: Optional[Mesh], axes
 def all_to_all(x: torch.Tensor, mesh: Optional[Mesh], axes) -> torch.Tensor:
     axes = () if mesh is None else mesh.live(axes)
     return _AllToAll.apply(x, mesh, axes) if axes else x
+
+
+# -- point to point -----------------------------------------------------------
+def send_recv(x: torch.Tensor, mesh: Mesh, axes, dst: int, src: int,
+              send: bool = True, receive: bool = True
+              ) -> Optional[torch.Tensor]:
+    """One exchange over the group of ``axes``, which every rank of the
+    group calls: with ``send``, this rank's ``x`` goes to position
+    ``dst`` along ``axes``; with ``receive``, a tensor shaped, typed and
+    placed as ``x`` comes from position ``src`` (else None). It is one
+    ``all_to_all_single`` whose split sizes are zero but for the
+    destination and the source: gloo carries it with CUDA tensors, where
+    its send/recv fail (``PERF.md``, PR 8 probe), and so does NCCL. A
+    backend that refuses it raises."""
+    n = mesh.size(axes)
+    flat = (x.contiguous().view(-1) if send
+            else x.new_empty(0))
+    out = x.new_empty(x.numel() if receive else 0)
+    in_splits, out_splits = [0] * n, [0] * n
+    in_splits[dst % n] = flat.numel()
+    out_splits[src % n] = out.numel()
+    dist.all_to_all_single(out, flat, out_splits, in_splits,
+                           group=mesh.group(axes))
+    return out.view(x.shape) if receive else None
+
+
+def ring_shift(x: torch.Tensor, mesh: Mesh, axes, offset: int = 1
+               ) -> torch.Tensor:
+    """The tensor of the rank ``offset`` places before this one along
+    ``axes`` (mod the axis size): every rank sends its ``x`` (all of one
+    shape) ``offset`` places on. No autograd."""
+    i = mesh.index(axes)
+    return send_recv(x, mesh, axes, i + offset, i - offset)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, offset):
+        ctx.args = (mesh, axes, offset)
+        return ring_shift(x, mesh, axes, offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axes, offset = ctx.args
+        return ring_shift(grad, mesh, axes, -offset), None, None, None
+
+
+def ppermute(x: torch.Tensor, mesh: Optional[Mesh], axis, shift: int = 1
+             ) -> torch.Tensor:
+    """``lax.ppermute(x, axis, [(i, (i + shift) % n)])``: this rank's
+    ``x`` goes to the rank ``shift`` places on along ``axis``, which
+    returns the tensor of the rank ``shift`` places before. The backward
+    is the reverse shift (JAX's transpose). Identity on an axis of size
+    1."""
+    axes = () if mesh is None else mesh.live(axis)
+    if not axes or shift % mesh.size(axes) == 0:
+        return x
+    return _PPermute.apply(x, mesh, axes, shift)

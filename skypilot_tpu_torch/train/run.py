@@ -14,11 +14,15 @@ aux loss; MFU counts its active (top-k) parameters.
 Multi-device: under the SKYTPU_* rank contract (``runtime/distributed
 .py``; one process per host, one worker per local GPU, which this entry
 point starts) the ranks form one process group and train on a mesh of
-``--dp/--fsdp/--tp/--dcn`` (``--fsdp auto``: every device left; ``--dcn
-auto``: the number of slices), sized as the JAX trainer sizes it. Every
-rank makes the same global batch and keeps its rows; rank 0 prints.
-``--sp/--pp/--ep`` above 1, and Mixtral on more than one device, exit as
-not yet ported, naming ROADMAP.md.
+``--dp/--fsdp/--tp/--sp/--pp/--dcn`` (``--fsdp auto``: every device
+left; ``--dcn auto``: the number of slices), sized as the JAX trainer
+sizes it. Every rank makes the same global batch and keeps its rows
+(and, with ``--sp``, its block of each sequence: ring attention);
+``--pp`` runs the layers as GPipe stages
+(``LlamaConfig.pp_microbatches`` microbatches, default one per stage),
+not together with ``--sp``; rank 0 prints. ``--ep`` above 1, and
+Mixtral on more than one device, exit as not yet ported, naming
+ROADMAP.md.
 
     SKYTPU_COORDINATOR_ADDR=10.0.0.1:8476 SKYTPU_NUM_PROCESSES=2 \
     SKYTPU_PROCESS_ID=0 python -m skypilot_tpu_torch.train.run \
@@ -116,10 +120,10 @@ def mesh_spec(args, n: int, num_slices: int):
 
 
 def _check_ported(args, world: int) -> None:
-    for flag in ('sp', 'pp', 'ep'):
-        if getattr(args, flag) > 1:
-            raise SystemExit(f'--{flag} {getattr(args, flag)}: {NOT_PORTED}')
-    asked = (world > 1 or args.dp > 1 or args.tp > 1
+    if args.ep > 1:
+        raise SystemExit(f'--ep {args.ep}: {NOT_PORTED}')
+    asked = (world > 1 or args.dp > 1 or args.tp > 1 or args.sp > 1
+             or args.pp > 1
              or (args.fsdp != 'auto' and int(args.fsdp) > 1)
              or (args.dcn != 'auto' and int(args.dcn) > 1))
     if args.model == 'mixtral' and asked:

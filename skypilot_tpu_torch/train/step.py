@@ -28,7 +28,7 @@ import torch
 
 from skypilot_tpu_torch.models.llama import LlamaModel, Params
 from skypilot_tpu_torch.parallel import sharding
-from skypilot_tpu_torch.parallel.mesh import Mesh
+from skypilot_tpu_torch.parallel.mesh import MESH_AXES, Mesh
 from skypilot_tpu_torch.parallel.sharding import DEFAULT_RULES, LogicalRules
 from skypilot_tpu_torch.utils.tree import unflatten
 
@@ -42,16 +42,17 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        rules: LogicalRules = DEFAULT_RULES) -> torch.Tensor:
     """Mean next-token cross entropy; logits [B,S,V], targets [B,S].
 
-    On a mesh, logits are this rank's rows and vocab shard [B/b, S, V/v]
-    and targets its rows: the row max, the sum of exponentials and the
-    target's logit are each all-reduced over the vocab axes in f32 (the
-    function of ``log_softmax`` over the whole vocab; a target in another
-    rank's shard adds 0 here), and the mean is over the global batch. The
-    result is the global loss on every rank; its backward gives each rank
-    the gradient of its own rows (sum them over the batch axes)."""
+    On a mesh, logits are this rank's rows, sequence block and vocab
+    shard [B/b, S/s, V/v] and targets its rows and block: the row max,
+    the sum of exponentials and the target's logit are each all-reduced
+    over the vocab axes in f32 (the function of ``log_softmax`` over the
+    whole vocab; a target in another rank's shard adds 0 here), and the
+    mean is over the global batch and sequence. The result is the global
+    loss on every rank; its backward gives each rank the gradient of its
+    own tokens (sum them over the batch and sequence axes)."""
     vocab_axes = () if mesh is None else mesh.live(rules.axes('vocab'))
-    batch_axes = () if mesh is None else mesh.live(rules.axes('batch'))
-    if not vocab_axes and not batch_axes:
+    token_axes = () if mesh is None else token_axes_of(mesh, rules)
+    if not vocab_axes and not token_axes:
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -logp.gather(-1, targets[..., None].long())[..., 0]
         if mask is None:
@@ -73,14 +74,21 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     nll = lse - picked
     if mask is None:
         total = nll.sum()
-        count = torch.tensor(float(nll.numel() * mesh.size(batch_axes)),
+        count = torch.tensor(float(nll.numel() * mesh.size(token_axes)),
                              device=x.device)
     else:
         mask = mask.float()
         total = (nll * mask).sum()
         count = sharding.all_reduce(mask.sum(), mesh,
-                                    batch_axes).clamp(min=1.0)
-    return sharding.reduce_from(total / count, mesh, batch_axes)
+                                    token_axes).clamp(min=1.0)
+    return sharding.reduce_from(total / count, mesh, token_axes)
+
+
+def token_axes_of(mesh: Mesh, rules: LogicalRules) -> Tuple[str, ...]:
+    """The live mesh axes that split the tokens of a batch: the batch
+    axes and the sequence axes, in ``MESH_AXES`` order."""
+    named = set(rules.axes('batch')) | set(rules.axes('seq'))
+    return mesh.live(tuple(a for a in MESH_AXES if a in named))
 
 
 def leaf_names(params: Params) -> List[str]:
@@ -250,16 +258,18 @@ class Trainer:
 
     def _sum_over_batch(self, names: List[str], grads: List[torch.Tensor]
                         ) -> List[torch.Tensor]:
-        """Each leaf's gradient summed over the batch axes that do not
-        split the leaf (the split ones summed in the gather's backward),
-        so every rank holds the global gradient of its shard."""
+        """Each leaf's gradient summed over the batch and sequence axes
+        that do not split the leaf (the split ones summed in the gather's
+        backward), so every rank holds the global gradient of its shard.
+        Weights are replicated over sp, each rank's tokens adding to them
+        (GSPMD's sum for JAX); pp splits no tokens and is not summed."""
         if self.mesh is None:
             return grads
-        batch = self.model.rules.axes('batch')
+        tokens = token_axes_of(self.mesh, self.model.rules)
         for name, g in zip(names, grads):
             split = set(sharding.spec_axes(self.model.specs[name]))
             sharding.all_reduce(g, self.mesh,
-                                tuple(a for a in batch if a not in split))
+                                tuple(a for a in tokens if a not in split))
         return grads
 
     def _global_norm(self, names: List[str], grads: List[torch.Tensor]
@@ -352,17 +362,23 @@ class Trainer:
 
     def shard_batch(self, batch: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
-        """This rank's rows of the global batch ('batch' -> the rules'
-        batch axes); the batch as it is on one device."""
+        """This rank's rows ('batch' -> the rules' batch axes) and
+        sequence block ('seq' -> the sequence axes) of the global batch;
+        the batch as it is on one device. Targets are shifted on the
+        whole sequence before (``train/run.py``), so a block's last
+        target is the next block's first token."""
         if self.mesh is None:
             return batch
-        axes = self.mesh.live(self.model.rules.axes('batch'))
-        n, i = self.mesh.size(axes), self.mesh.index(axes)
-        out = {}
-        for key, value in batch.items():
-            if value.shape[0] % n:
-                raise ValueError(f'global batch {value.shape[0]} not '
-                                 f'divisible by {n} batch shards {axes}')
-            rows = value.shape[0] // n
-            out[key] = value[i * rows:(i + 1) * rows]
+        rules = self.model.rules
+        out = dict(batch)
+        for dim, logical in ((0, 'batch'), (1, 'seq')):
+            axes = self.mesh.live(rules.axes(logical))
+            n, i = self.mesh.size(axes), self.mesh.index(axes)
+            for key, value in out.items():
+                if value.shape[dim] % n:
+                    raise ValueError(f'global {logical} {value.shape[dim]} '
+                                     f'not divisible by {n} {logical} '
+                                     f'shards {axes}')
+                size = value.shape[dim] // n
+                out[key] = value.narrow(dim, i * size, size)
         return out

@@ -238,15 +238,20 @@ def test_embedding_refuses_embed_axes_outside_the_batch(embed):
 
 
 def test_model_refuses_axes_not_ported():
+    """ep is not ported; sp with pp is refused as JAX refuses it; Mixtral
+    takes no mesh, sp and pp included."""
     from skypilot_tpu_torch.models import mixtral
-    for axis in ('pp', 'sp', 'ep'):
-        mesh = torch_mesh.Mesh(torch_mesh.MeshSpec(**{axis: 2}))
-        with pytest.raises(NotImplementedError, match='not yet ported'):
-            torch_llama.LlamaModel(CFG, device='cpu', mesh=mesh)
+    mesh = torch_mesh.Mesh(torch_mesh.MeshSpec(ep=2))
     with pytest.raises(NotImplementedError, match='not yet ported'):
-        mixtral.MixtralModel(mixtral.PRESETS['test-tiny-moe'], device='cpu',
-                             mesh=torch_mesh.Mesh(
-                                 torch_mesh.MeshSpec(fsdp=2)))
+        torch_llama.LlamaModel(CFG, device='cpu', mesh=mesh)
+    mesh = torch_mesh.Mesh(torch_mesh.MeshSpec(sp=2, pp=2))
+    with pytest.raises(NotImplementedError, match='pp > 1 with sp > 1'):
+        torch_llama.LlamaModel(CFG, device='cpu', mesh=mesh)
+    for sizes in ({'fsdp': 2}, {'sp': 2}, {'pp': 2}):
+        with pytest.raises(NotImplementedError, match='not yet ported'):
+            mixtral.MixtralModel(mixtral.PRESETS['test-tiny-moe'],
+                                 device='cpu', mesh=torch_mesh.Mesh(
+                                     torch_mesh.MeshSpec(**sizes)))
 
 
 def test_run_mesh_sizing_matches_jax_arithmetic():

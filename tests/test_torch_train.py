@@ -333,8 +333,10 @@ def test_run_main_synthetic_tokens_are_seeded_per_step():
     (['--tp', '2', '--fsdp', '1'], '!= 1 devices'),
     (['--fsdp', '4'], '!= 1 devices'),
     (['--preset', 'nope'], 'unknown --preset'),
-    (['--sp', '2'], 'not yet ported'),
-    (['--pp', '2'], 'not yet ported'),
+    (['--model', 'mixtral', '--preset', 'test-tiny-moe', '--sp', '2'],
+     'not yet ported'),
+    (['--model', 'mixtral', '--preset', 'test-tiny-moe', '--pp', '2'],
+     'not yet ported'),
     (['--model', 'mixtral', '--preset', 'test-tiny-moe', '--fsdp', '2'],
      'not yet ported'),
     (['--tp', '2'], r'1 devices not divisible by dcn\*tp\*sp\*pp\*ep\*dp=2'),
