@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernel,train
     python3 chip_smoke.py --phases build,breakdown   # where the time goes
     python3 chip_smoke.py --phases build,kernel,serve_moe,train_moe
+    python3 chip_smoke.py --phases device,build,kernel,train_mesh_moe
     python3 chip_smoke.py --phases device,build,kernel,train,train_mesh
     python3 chip_smoke.py --phases build,kernel --parent DIR  # old vs new
 
@@ -22,7 +23,9 @@ Phases, each printing one JSON object per line:
           blocks among them: b 4 x 4096 x 4096, causal and full). Times
           are device time: the kernels' durations from torch.profiler
           (CUPTI), averaged over the calls, with CUDA events around the
-          loop of calls beside them. With --parent, the
+          loop of calls beside them; a device time below its bound, or
+          below two thirds of an event time the device paced, is read
+          again, and fails the run if still short. With --parent, the
           kernels of another checkout (e.g. a `git archive` of an earlier
           commit) are built from its csrc/ and timed on the same inputs;
   train   the launchable trainer (train.run.main) at llama-1b full width
@@ -76,6 +79,16 @@ Phases, each printing one JSON object per line:
           a profiled step, a forward + backward under 'full', 'dots' and
           'names' from one state, and loss and grads through K1/K2
           against the reference attention;
+  train_mesh_moe  Mixtral on a mesh through train.run: mixtral-8x7b at
+          full width, 2 layers, global batch 2 x seq 4096, remat 'full', 3
+          steps on one fixed batch, one device and then two ranks sharing
+          the card over gloo on {ep: 2} (experts 0-3 and 4-7, every token
+          on both) and {fsdp: 2} (a row each, routed as one batch): losses,
+          grad norms and each re-assembled leaf's change against one
+          device's, K1/K2 launches per rank, each layer's dropped fraction
+          equal on both ranks, the routing choices that differ from one
+          device's (bounded), peak memory and ms per step per rank, and a
+          profiled {ep: 2} step (expert bmm, the MoE all-reduce, K1/K2);
   breakdown  (only when asked for) host and device time per dispatch
           kind of the serve phase's engine, with its costliest ops; an
           admit_many of 4 x 512 against 4 solo admits; the int8 step and
@@ -102,7 +115,7 @@ import urllib.request
 from typing import NamedTuple
 
 ALL_PHASES = ('device', 'build', 'kernel', 'train', 'train_mesh', 'serve',
-              'serve_modes', 'serve_moe', 'train_moe')
+              'serve_modes', 'serve_moe', 'train_moe', 'train_mesh_moe')
 # Run only when named in --phases: a per-dispatch time breakdown.
 EXTRA_PHASES = ('breakdown',)
 KERNELS = ('flash_fwd', 'flash_bwd')
@@ -181,14 +194,17 @@ RING_B, RING_SEQ = TRAIN_B, TRAIN_SEQ // 2
 MESH_TIMEOUT_S = 600
 
 
-def mesh_launches(name: str, rank: int, layers: int) -> dict:
+def mesh_launches(name: str, rank: int, layers: int,
+                  remat: str = 'dots') -> dict:
     """K1 and K2 launches of one rank's MESH_STEPS steps on mesh
-    ``name`` under 'dots' (its recompute keeps K1's outputs): one each per
+    ``name``: under 'dots' (its recompute keeps K1's outputs) one each per
     layer and step, times the ring blocks rank r of sp 2 visits (r + 1),
-    or over pp 2's half of the layers times its 2 microbatches."""
+    or over pp 2's half of the layers times its 2 microbatches; under
+    'full' (train_mesh_moe) the recompute runs K1 again, so two K1 and
+    one K2 per layer and step (train_moe's 8 + 4 at 4 layers)."""
     per_layer = {'sp2': rank + 1}.get(name, 1)
     n = MESH_STEPS * layers * per_layer
-    return {'flash_fwd': n, 'flash_bwd': n}
+    return {'flash_fwd': n * (2 if remat == 'full' else 1), 'flash_bwd': n}
 
 
 # Mixtral-8x7B at full width (skypilot_tpu/models/mixtral.py:81-85: embed
@@ -208,6 +224,29 @@ MOE_TRAIN_B, MOE_TRAIN_SEQ = 1, 4096
 MOE_TRAIN_ARGV = ['--model', 'mixtral', '--preset', MOE_PRESET, '--batch',
                   str(MOE_TRAIN_B), '--seq', str(MOE_TRAIN_SEQ), '--remat',
                   'full', '--device', 'cuda', '--log-every', '1']
+# train_mesh_moe: Mixtral on a mesh through train.run, as train_mesh
+# drives Llama: mixtral-8x7b at full width, 32 -> MOE_MESH_LAYERS layers
+# (one device's params, grads and both AdamW moments are 25 GB at 2 layers,
+# and two ranks' share the card), global batch MOE_MESH_B x seq 4096 (the
+# example's sequence), remat 'full' (the preset's), MESH_STEPS steps on one
+# fixed batch (seed 7); one device, then two ranks: {ep: 2} (the example's
+# --ep 8 --fsdp auto in miniature: each rank holds experts 0-3 or 4-7 and
+# sees every token, b 2 x 4096) and {fsdp: 2} (each rank one row, b 1 x
+# 4096; each layer routes both ranks' tokens as one batch). Gated as
+# train_mesh (loss, grad norm, each re-assembled leaf's change), with K1/K2
+# launches per rank by ``mesh_launches(..., 'full')``, each layer's dropped
+# fraction equal on both ranks (it is the global batch's), and the routing
+# choices of the first forward that differ from one device's at most
+# MOE_MESH_FLIPS_MAX of them: bf16 sums in another order flip router near
+# ties (train_moe's gate: 25 of 32768 between K1 and reference attention,
+# PERF.md).
+MOE_MESH_LAYERS, MOE_MESH_B = 2, 2
+MOE_MESH_ARGV = ['--model', 'mixtral', '--preset', MOE_PRESET, '--batch',
+                 str(MOE_MESH_B), '--seq', str(MOE_TRAIN_SEQ), '--remat',
+                 'full', '--device', 'cuda', '--log-every', '1']
+MOE_MESH_RUNS = (('ep2', ['--ep', '2', '--fsdp', '1']),
+                 ('fsdp2', ['--fsdp', '2']))
+MOE_MESH_FLIPS_MAX = 0.01
 # The equivalence gates run on a second engine over the same weights at
 # capacity factor 4.0 >= E/k: no assignment can drop, so a token's output
 # does not depend on which tokens share its dispatch (at 1.25 it does, in
@@ -242,34 +281,63 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def time_cuda(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call over ``iters`` calls (CUDA events). When
-    a call's kernels take less time than the host takes to enqueue them,
-    this reads the host."""
+def _event_and_host_ms(fn, iters: int, warmup: int = 3):
+    """(CUDA-event ms, host enqueue ms) per call over ``iters`` calls."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_ms
+
+
+def time_cuda(fn, iters: int, warmup: int = 3) -> float:
+    """Mean milliseconds per call over ``iters`` calls (CUDA events). When
+    a call's kernels take less time than the host takes to enqueue them,
+    this reads the host."""
+    return _event_and_host_ms(fn, iters, warmup)[0]
 
 
 MS_SOURCE = 'torch.profiler device time, mean per call'
+# Where the host enqueued the calls in under half their event time (the
+# device, not the host, set the pace), a device time below this share of
+# the event time is a profiler reading that missed kernels: the share was
+# 0.86-1.08 in the sound readings of six card runs outside the 1536-token
+# shape (0.61-0.93 there, where the host's enqueue can set the event
+# time), and 0.482 and 0.518 in the two that missed about half (SDPA at b
+# 4 x 4096², full, and at b 1 x 4096², causal).
+DEVICE_EVENT_MIN = 2 / 3
 
 
-def time_device(fn, iters: int, warmup: int = 3):
+def time_device(fn, iters: int, warmup: int = 3, bound_ms=None,
+                what: str = ''):
     """(device ms, event ms) per call of ``fn``: the summed durations of
     the kernels it launched, from torch.profiler, averaged over ``iters``
-    calls; and ``time_cuda`` over as many calls, beside it."""
+    calls; and the CUDA-event time over as many calls, beside it. A
+    device time below ``bound_ms`` (the least time the card could take),
+    or below DEVICE_EVENT_MIN of a device-paced event time, means the
+    profiler missed kernels: it is read once more, and if still short
+    the run fails, naming ``what``. No such reading is ever returned."""
     for _ in range(warmup):
         fn()
-    return (_profile_calls(fn, iters)['busy_ms'],
-            time_cuda(fn, iters, warmup=0))
+    for _ in range(2):
+        busy = _profile_calls(fn, iters)['busy_ms']
+        event, host = _event_and_host_ms(fn, iters, warmup=0)
+        short = ((bound_ms is not None and busy < bound_ms)
+                 or (host < 0.5 * event and busy < DEVICE_EVENT_MIN * event))
+        if not short:
+            return busy, event
+    raise RuntimeError(f'{what}: device time {busy} ms is below its bound '
+                       f'{bound_ms} ms or {DEVICE_EVENT_MIN:.3f} of its event '
+                       f'time {event} ms (host {host} ms), twice: the '
+                       'profiler missed kernels')
 
 
 def visible_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -392,17 +460,20 @@ def phase_kernel(ctx) -> None:
         if not rec['ok']:
             failures.append(rec)
         del q, k, v
-    # K1 at the train_moe shape (mixtral-8x7b heads, batch 1 x 4096).
-    q, k, v = _qkv(gen, MOE_TRAIN_B, MOE_TRAIN_SEQ, MOE_TRAIN_SEQ, HQ, HKV,
-                   HEAD_DIM)
-    rec = check_flash_fwd(q, k, v, True, _fwd_by_kv_head)
-    rec.update(time_flash(ctx, q, k, v, HEAD_DIM ** -0.5,
-                          plain=_fwd_by_kv_head))
-    emit(rec)
-    worst = max(worst, rec['out_max_abs_err'])
-    if not rec['ok']:
-        failures.append(rec)
-    del q, k, v
+    # K1 at the train_moe shape (mixtral-8x7b heads, batch 1 x 4096; the
+    # {fsdp: 2} rank's of train_mesh_moe) and at the {ep: 2} rank's
+    # (batch 2 x 4096).
+    for b in (MOE_TRAIN_B, MOE_MESH_B):
+        q, k, v = _qkv(gen, b, MOE_TRAIN_SEQ, MOE_TRAIN_SEQ, HQ, HKV,
+                       HEAD_DIM)
+        rec = check_flash_fwd(q, k, v, True, _fwd_by_kv_head)
+        rec.update(time_flash(ctx, q, k, v, HEAD_DIM ** -0.5,
+                              plain=_fwd_by_kv_head))
+        emit(rec)
+        worst = max(worst, rec['out_max_abs_err'])
+        if not rec['ok']:
+            failures.append(rec)
+        del q, k, v
     ctx['flash'] = {'max_abs_err': worst}
     failures += check_flash_bwd(ctx, gen)
     if failures:
@@ -454,6 +525,9 @@ BWD_CASES += [Case(b, TRAIN_SEQ, TRAIN_SEQ, True, HEAD_DIM, hq, hkv)
 # The sp 2 ring's blocks: diagonal (causal) and earlier (full).
 BWD_CASES += [Case(RING_B, RING_SEQ, RING_SEQ, causal, HEAD_DIM, TRAIN_HQ,
                    TRAIN_HKV) for causal in (True, False)]
+# train_mesh_moe's {ep: 2} rank: b 2 x 4096, 32/8 heads.
+BWD_CASES += [Case(MOE_MESH_B, MOE_TRAIN_SEQ, MOE_TRAIN_SEQ, True, HEAD_DIM,
+                   HQ, HKV)]
 
 
 def _qkv(gen, b, sq, sk, hq, hkv, d):
@@ -572,13 +646,16 @@ def check_flash_bwd(ctx, gen):
             failures.append(rec)
         del q, k, v, dout, out, lse, got, want
     ctx['flash_bwd'] = {'max_abs_err': worst}
-    # Timed at the train phase's shape, at train_moe's, at train_mesh's
-    # per-rank shapes and at the sp 2 ring's block shapes.
+    # Timed at the train phase's shape, at train_moe's, at
+    # train_mesh_moe's {ep: 2} rank's, at train_mesh's per-rank shapes and
+    # at the sp 2 ring's block shapes.
     for key, (b, s, hq, hkv, causal) in (
             ('flash_bwd_timing', (TRAIN_B, TRAIN_SEQ, TRAIN_HQ, TRAIN_HKV,
                                   True)),
             ('flash_bwd_timing_moe', (MOE_TRAIN_B, MOE_TRAIN_SEQ, HQ, HKV,
-                                      True))
+                                      True)),
+            ('flash_bwd_timing_moe_ep', (MOE_MESH_B, MOE_TRAIN_SEQ, HQ, HKV,
+                                         True))
     ) + tuple((('flash_bwd_timing_mesh', b, hq),
                (b, TRAIN_SEQ, hq, hkv, True))
               for b, hq, hkv in MESH_KERNEL_SHAPES) + tuple(
@@ -630,12 +707,13 @@ def _kernels_from(libs):
         attn._flash_lib, attn._flash_bwd_lib = saved
 
 
-def _parent_ms(ctx, fn, iters):
+def _parent_ms(ctx, fn, iters, bound_ms=None, what=''):
     """Device ms of ``fn`` with the parent checkout's kernels, or None."""
     if not ctx.get('parent_libs'):
         return None
     with _kernels_from(ctx['parent_libs']):
-        return time_device(fn, iters)[0]
+        return time_device(fn, iters, bound_ms=bound_ms,
+                           what=f'parent {what}')[0]
 
 
 def time_flash_bwd(ctx, b, s, hq, hkv, causal=True):
@@ -664,10 +742,15 @@ def time_flash_bwd(ctx, b, s, hq, hkv, causal=True):
     def kernel():
         attn.flash_attention_bwd(*sets[next(turn) % 2], causal, scale)
 
-    kernel_ms, kernel_event_ms = time_device(kernel, iters=10)
-    parent_ms = _parent_ms(ctx, kernel, iters=10)
+    bound_ms, bound_by = flash_bwd_bound_ms(b, s, s, hq, hkv, d, causal,
+                                            ctx)
+    what = f'K2 b {b} x {s}, {hq}/{hkv} heads, causal {causal}'
+    kernel_ms, kernel_event_ms = time_device(kernel, iters=10,
+                                             bound_ms=bound_ms, what=what)
+    parent_ms = _parent_ms(ctx, kernel, 10, bound_ms, what)
     plain_ms = time_device(lambda: _bwd_by_kv_head(*sets[0], causal, scale),
-                           iters=2, warmup=1)[0]
+                           iters=2, warmup=1, bound_ms=bound_ms,
+                           what=f'plain {what}')[0]
     lib_sets = []
     for q, k, v, _, _, dout in sets:
         qt, dot = q.transpose(1, 2), dout.transpose(1, 2)
@@ -684,9 +767,8 @@ def time_flash_bwd(ctx, b, s, hq, hkv, causal=True):
             dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, causal, seed,
             offset, scale=scale)
 
-    library_ms, library_event_ms = time_device(library, iters=10)
-    bound_ms, bound_by = flash_bwd_bound_ms(b, s, s, hq, hkv, d, causal,
-                                            ctx)
+    library_ms, library_event_ms = time_device(
+        library, iters=10, bound_ms=bound_ms, what=f'library {what}')
     return {'kernel_ms': kernel_ms, 'kernel_event_ms': kernel_event_ms,
             'parent_ms': parent_ms, 'plain_ms': plain_ms,
             'library_ms': library_ms, 'library_event_ms': library_event_ms,
@@ -721,12 +803,16 @@ def time_flash(ctx, q, k, v, scale, sets=L2_SETS, plain=None, causal=True):
                                        scale=scale, enable_gqa=True)
 
     iters = 48 if sq <= 2048 else 10
-    kernel_ms, kernel_event_ms = time_device(kernel, iters)
-    parent_ms = _parent_ms(ctx, kernel, iters)
-    plain_ms = time_device(lambda: plain(q, k, v, causal, scale),
-                           iters=5 if sq <= 2048 else 2, warmup=1)[0]
-    library_ms, library_event_ms = time_device(sdpa, iters)
     bound_ms, bound_by = flash_bound_ms(b, sq, sk, hq, hkv, d, causal, ctx)
+    what = f'K1 b {b} x {sq} x {sk}, {hq}/{hkv} heads, causal {causal}'
+    kernel_ms, kernel_event_ms = time_device(kernel, iters,
+                                             bound_ms=bound_ms, what=what)
+    parent_ms = _parent_ms(ctx, kernel, iters, bound_ms, what)
+    plain_ms = time_device(lambda: plain(q, k, v, causal, scale),
+                           iters=5 if sq <= 2048 else 2, warmup=1,
+                           bound_ms=bound_ms, what=f'plain {what}')[0]
+    library_ms, library_event_ms = time_device(
+        sdpa, iters, bound_ms=bound_ms, what=f'SDPA {what}')
     timing = {'kernel_ms': kernel_ms, 'kernel_event_ms': kernel_event_ms,
               'parent_ms': parent_ms, 'plain_ms': plain_ms,
               'library_ms': library_ms, 'library_event_ms': library_event_ms,
@@ -1020,6 +1106,7 @@ def phase_train_mesh(ctx) -> None:
                         rec[f'rank{rank}'] = json.load(f)
         nccl_ok = all(probe.get(f'rank{r}', {}).get('ok') for r in range(2))
         backend = 'nccl' if nccl_ok else 'gloo'
+        ctx['mesh_backend'] = backend
         emit({'phase': 'train_mesh', 'check': 'two_ranks_on_one_card',
               'nccl': probe, 'backend': backend, 'gloo_p2p': p2p,
               'card': ctx['smi']})
@@ -1192,7 +1279,6 @@ def _mesh_rank(rank: int, port: int, backend: str, ref: dict,
     from skypilot_tpu_torch.ops import collectives_bench
     from skypilot_tpu_torch.runtime import distributed
     from skypilot_tpu_torch.train import run
-    from skypilot_tpu_torch.train.step import leaf_names
     distributed.init(f'127.0.0.1:{port}', 2, rank, device_type='cuda',
                      backend=backend)
     # A process per rank (the contract's layout is a process per host,
@@ -1213,32 +1299,43 @@ def _mesh_rank(rank: int, port: int, backend: str, ref: dict,
         run_s = time.perf_counter() - t0
         launches = dict(attn.LAUNCHES)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        full = res['trainer'].model.full_params(res['state'].params)
-        rel, unmoved = {}, []
-        if rank == 0:
-            want, init = (torch.load(ref[k], mmap=True, weights_only=True)
-                          for k in ('params', 'init'))
-            flat = dict(full, **{f'layers/{k}': v
-                                 for k, v in full['layers'].items()})
-            for n in leaf_names(full):
-                dev = flat[n].device
-                rel[n] = _rel_update(flat[n], want[n].to(dev),
-                                     init[n].to(dev))
-                if torch.equal(want[n], init[n]):
-                    unmoved.append(n)
+        rel, unmoved = _update_rel(res['trainer'], res['state'], ref,
+                                   rank)
         out[name] = {'losses': [r['loss'] for r in res['log']],
                      'grad_norms': [r['grad_norm'] for r in res['log']],
                      'ms_per_step': _ms_per_step(res['log']),
                      'launches': launches, 'peak_mem_gb': peak_gb,
                      'run_s': run_s,
                      'update_rel_l2': rel, 'unmoved': unmoved}
-        del res, full
+        del res
     out['bench'] = collectives_bench.run_bench(
         [1.0, 16.0, 64.0], iters=5, device=torch.device('cuda'),
         verbose=False)
     with open(os.path.join(out_dir, f'rank{rank}.json'), 'w') as f:
         json.dump(out, f)
     distributed.shutdown()
+
+
+def _update_rel(trainer, state, ref, rank: int):
+    """Each leaf's change from the shared init, re-assembled from every
+    rank's shard (a collective: every rank calls it), against the
+    one-device run's (``ref``'s files), on rank 0: ({leaf: relative L2},
+    the leaves the one-device run left unchanged); empty elsewhere."""
+    import torch
+    from skypilot_tpu_torch.train.step import leaf_names
+    full = trainer.model.full_params(state.params)
+    rel, unmoved = {}, []
+    if rank == 0:
+        want, init = (torch.load(ref[k], mmap=True, weights_only=True)
+                      for k in ('params', 'init'))
+        flat = dict(full, **{f'layers/{k}': v
+                             for k, v in full['layers'].items()})
+        for n in leaf_names(full):
+            dev = flat[n].device
+            rel[n] = _rel_update(flat[n], want[n].to(dev), init[n].to(dev))
+            if torch.equal(want[n], init[n]):
+                unmoved.append(n)
+    return rel, unmoved
 
 
 def _named_policies(ctx, cfg, state, batch):
@@ -1874,16 +1971,17 @@ def _moe_depth(layers: int):
 @contextlib.contextmanager
 def _routing_log(choices: bool = False):
     """Every ``ops.moe.top_k_routing`` call inside the block, in order:
-    tokens N, capacity C, aux loss and dropped fraction (device scalars);
-    with ``choices``, each token's experts [N, k] as the router picks
-    them (ties to the lower index)."""
+    tokens N, capacity C, aux loss and dropped fraction (device scalars;
+    on a mesh, of the global batch); with ``choices``, each token's
+    experts [N, k] as the router picks them (ties to the lower index; on
+    a mesh, this rank's tokens)."""
     import torch
     from skypilot_tpu_torch.ops import moe
     plain = moe.top_k_routing
     log = []
 
-    def recorded(logits, top_k, capacity):
-        out = plain(logits, top_k, capacity)
+    def recorded(logits, top_k, capacity, **mesh):
+        out = plain(logits, top_k, capacity, **mesh)
         entry = {'n': logits.shape[0], 'capacity': capacity,
                  'aux_loss': out[2]['aux_loss'].detach(),
                  'dropped': out[2]['dropped_frac']}
@@ -2366,6 +2464,227 @@ def phase_train_moe(ctx) -> None:
         raise RuntimeError(f'train_moe: {faults}')
 
 
+def _moe_mesh_batch(cfg):
+    """train_mesh_moe's fixed batch: [MOE_MESH_B, MOE_TRAIN_SEQ] from seed
+    7 on the card."""
+    import torch
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(7)
+    return torch.randint(0, cfg.vocab_size, (MOE_MESH_B, MOE_TRAIN_SEQ),
+                         device='cuda', generator=gen)
+
+
+def phase_train_mesh_moe(ctx) -> None:
+    """Mixtral on a mesh through ``train.run`` (see MOE_MESH_LAYERS): the
+    one-device run, then two ranks sharing the card on each of
+    MOE_MESH_RUNS, gated against it."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import torch
+    from skypilot_tpu_torch.ops import attention as attn
+    from skypilot_tpu_torch.train import run
+    from skypilot_tpu_torch.train.step import get_leaf, leaf_names
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_moe_mesh_')
+    argv = MOE_MESH_ARGV + ['--steps', str(MESH_STEPS)]
+    procs = []
+    try:
+        with _moe_depth(MOE_MESH_LAYERS) as cfg:
+            fixed = _moe_mesh_batch(cfg)
+            attn.reset_launch_counts()
+            with _routing_log(choices=True) as log:
+                res = run.main(argv, batch_fn=lambda step: fixed)
+            launches = dict(attn.LAUNCHES)
+            layers = cfg.num_layers
+            ref = {'losses': [r['loss'] for r in res['log']],
+                   'grad_norms': [r['grad_norm'] for r in res['log']],
+                   'ms_per_step': _ms_per_step(res['log']),
+                   'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
+                   'dropped': [float(e['dropped']) for e in log],
+                   'params': os.path.join(tmp, 'ref.pt'),
+                   'init': os.path.join(tmp, 'init.pt'),
+                   'choices': os.path.join(tmp, 'choices.pt')}
+            torch.save([e['choice'].cpu() for e in log[:layers]],
+                       ref['choices'])
+            del log
+            init = run.main(MOE_MESH_ARGV + ['--steps', '0'],
+                            batch_fn=lambda step: fixed)['state'].params
+            for params, path in ((res['state'].params, ref['params']),
+                                 (init, ref['init'])):
+                torch.save({n: get_leaf(params, n).detach().cpu()
+                            for n in leaf_names(params)}, path)
+            del res, params, init
+        gc.collect()
+        torch.cuda.empty_cache()
+        backend = ctx.get('mesh_backend', 'gloo')
+        port = _free_port()
+        mp_ctx = multiprocessing.get_context('spawn')
+        procs = [mp_ctx.Process(target=_moe_mesh_rank,
+                                args=(rank, port, backend, ref, tmp))
+                 for rank in range(2)]
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        codes = _join_all(procs, MESH_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        if codes['timed_out'] or any(codes['exitcodes']):
+            raise RuntimeError(f'two-rank Mixtral run: {codes}')
+        ranks = []
+        for rank in range(2):
+            with open(os.path.join(tmp, f'rank{rank}.json')) as f:
+                ranks.append(json.load(f))
+    finally:
+        _join_all(procs, 0)  # stops any left on a failure
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    faults = []
+    phase_launches = dict(launches)
+    choices = layers * MOE_MESH_B * MOE_TRAIN_SEQ * cfg.top_k
+    emit({'phase': 'train_mesh_moe', 'mesh': 'one_device',
+          'preset': MOE_PRESET, 'layers': layers, 'params': cfg.num_params,
+          'batch': MOE_MESH_B, 'seq': MOE_TRAIN_SEQ, 'remat': 'full',
+          'capacity_factor': cfg.capacity_factor, 'losses': ref['losses'],
+          'grad_norms': ref['grad_norms'], 'launches': launches,
+          'dropped_frac_first_forward': ref['dropped'][:layers],
+          'peak_mem_gb': ref['peak_mem_gb'],
+          'ms_per_step': ref['ms_per_step'], 'card': ctx['smi']})
+    if launches != mesh_launches('one', 0, layers, 'full'):
+        faults.append(f'one device launched {launches}')
+    for name, _ in MOE_MESH_RUNS:
+        recs = [r[name] for r in ranks]
+        got = recs[0]
+        loss_rel = [abs(a - b) / abs(b)
+                    for a, b in zip(got['losses'], ref['losses'])]
+        norm_rel = [abs(a - b) / abs(b)
+                    for a, b in zip(got['grad_norms'], ref['grad_norms'])]
+        flips = sum(r['router_flips'] for r in recs)
+        # {ep: 2}: both ranks route every token (count one); {fsdp: 2}: each
+        # its own row.
+        if name == 'ep2':
+            flips = recs[0]['router_flips']
+        want = [mesh_launches(name, rank, layers, 'full')
+                for rank in range(2)]
+        rec = {'phase': 'train_mesh_moe', 'mesh': name, 'ranks': 2,
+               'backend': got['backend'], 'global_batch': MOE_MESH_B,
+               'seq': MOE_TRAIN_SEQ, 'remat': 'full', 'layers': layers,
+               'losses': got['losses'], 'losses_one_device': ref['losses'],
+               'loss_rel_err': loss_rel, 'loss_rtol': GATE_LOSS_RTOL,
+               'grad_norms': got['grad_norms'],
+               'grad_norms_one_device': ref['grad_norms'],
+               'grad_norm_rel_err': norm_rel, 'grad_rtol': GATE_GRAD_RTOL,
+               'update_rel_l2': got['update_rel_l2'],
+               'update_rtol': MESH_UPDATE_RTOL,
+               'unmoved_leaves': got['unmoved'],
+               'launches_per_rank': [r['launches'] for r in recs],
+               'launches_predicted': want,
+               'dropped_frac_first_forward_per_rank': [
+                   r['dropped'][:layers] for r in recs],
+               'dropped_frac_first_forward_one_device':
+                   ref['dropped'][:layers],
+               'dropped_equal_across_ranks': all(
+                   r['dropped'] == got['dropped'] for r in recs),
+               'router_flips_first_forward': flips,
+               'routing_choices_first_forward': choices,
+               'router_flips_max': MOE_MESH_FLIPS_MAX * choices,
+               'peak_mem_gb_per_rank': [r['peak_mem_gb'] for r in recs],
+               'ms_per_step': [r['ms_per_step'] for r in recs],
+               'ms_per_step_one_device': ref['ms_per_step'],
+               'run_s': [r['run_s'] for r in recs],
+               'ms_note': 'two ranks share one card (collectives through '
+                          'the host under gloo): not a multi-GPU number',
+               'card': ctx['smi']}
+        if got.get('profile'):
+            rec['profiled_step'] = got['profile']
+        emit(rec)
+        for r in recs:
+            for k, n in r['launches'].items():
+                phase_launches[k] += n
+        if (max(loss_rel) > GATE_LOSS_RTOL or max(norm_rel) > GATE_GRAD_RTOL
+                or max(got['update_rel_l2'].values()) > MESH_UPDATE_RTOL
+                or [r['launches'] for r in recs] != want
+                or not rec['dropped_equal_across_ranks']
+                or flips > rec['router_flips_max']
+                or any(r['losses'] != got['losses'] for r in recs)):
+            faults.append(name)
+    emit({'phase': 'train_mesh_moe', 'wall_s_two_ranks': wall_s,
+          'card': ctx['smi']})
+    ctx['moe_mesh_launches'] = phase_launches
+    if faults:
+        raise RuntimeError(f'train_mesh_moe runs off the one-device '
+                           f'trainer: {faults}')
+
+
+def _moe_mesh_rank(rank: int, port: int, backend: str, ref: dict,
+                   out_dir: str) -> None:
+    """One of the two ranks of train_mesh_moe, on card ``rank`` mod the
+    cards there are: each of MOE_MESH_RUNS through ``train.run.main``
+    (the group stays up between them); on {ep: 2} one more step under
+    torch.profiler; results to out_dir."""
+    import torch
+    from skypilot_tpu_torch.ops import attention as attn
+    from skypilot_tpu_torch.runtime import distributed
+    from skypilot_tpu_torch.train import run
+    distributed.init(f'127.0.0.1:{port}', 2, rank, device_type='cuda',
+                     backend=backend)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    one_choices = torch.load(ref['choices'], weights_only=True)
+    out = {}
+    with _moe_depth(MOE_MESH_LAYERS) as cfg:
+        fixed = _moe_mesh_batch(cfg)
+        for name, flags in MOE_MESH_RUNS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            attn.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _routing_log(choices=True) as log:
+                res = run.main(MOE_MESH_ARGV + ['--steps', str(MESH_STEPS)]
+                               + flags, batch_fn=lambda step: fixed)
+            run_s = time.perf_counter() - t0
+            launches = dict(attn.LAUNCHES)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            trainer, state = res['trainer'], res['state']
+            # The first forward's choices for this rank's rows against one
+            # device's for the same tokens.
+            rows = trainer.row_index(MOE_MESH_B)
+            flips = 0
+            for layer, want in enumerate(one_choices):
+                mine = want.view(MOE_MESH_B, -1, cfg.top_k)[rows]
+                flips += int((log[layer]['choice'].cpu()
+                              != mine.reshape(-1, cfg.top_k)).sum())
+            rec = {'backend': backend,
+                   'losses': [r['loss'] for r in res['log']],
+                   'grad_norms': [r['grad_norm'] for r in res['log']],
+                   'ms_per_step': _ms_per_step(res['log']),
+                   'launches': launches, 'peak_mem_gb': peak_gb,
+                   'run_s': run_s, 'router_flips': flips,
+                   'dropped': [float(e['dropped']) for e in log]}
+            del log
+            rel, unmoved = _update_rel(trainer, state, ref, rank)
+            rec.update(update_rel_l2=rel, unmoved=unmoved)
+            # One more step, profiled, after the params are read.
+            if name == 'ep2':
+                step = trainer.step_fn()
+                batch = trainer.shard_batch(
+                    {'tokens': fixed,
+                     'targets': torch.roll(fixed, -1, dims=1)})
+                # Gloo runs the MoE all-reduces on the host: their device
+                # part is the copies to and from it (memcpy_ms).
+                groups = {'expert_bmm': ('aten::bmm',),
+                          'dense_mm': ('aten::mm', 'aten::addmm'),
+                          'optimizer': ('aten::_foreach', 'Optimizer')}
+                prof = _profile_calls(lambda: step(state, batch), 1, top=12,
+                                      groups=groups)
+                rec['profile'] = {k: prof[k] for k in (
+                    'busy_ms', 'memcpy_ms', 'port_kernels_ms', 'group_ms',
+                    'top_ops')}
+            out[name] = rec
+            del res, trainer, state
+    with open(os.path.join(out_dir, f'rank{rank}.json'), 'w') as f:
+        json.dump(out, f)
+    distributed.shutdown()
+
+
 def _device_us(evt) -> float:
     """An averaged profiler event's self device time in microseconds (the
     attribute was renamed from cuda_* to device_* across torch versions)."""
@@ -2407,6 +2726,9 @@ def _profile_calls(fn, reps: int, top: int = 10, groups=None):
            for name in attn.LAUNCHES}
     out = {
         'busy_ms': sum(_device_us(e) for e in kernels) / reps / 1e3,
+        # Host <-> device copies, gloo's with CUDA tensors among them.
+        'memcpy_ms': sum(_device_us(e) for e in kernels
+                         if 'Memcpy' in e.key) / reps / 1e3,
         'kernels': sum(e.count for e in kernels) // reps,
         'port_kernels_ms': own,
         'top_ops': [{'op': e.key[:60], 'ms': _device_us(e) / reps / 1e3,
@@ -2551,8 +2873,9 @@ def kernels_line(ctx):
     """K1 timed at the serve path's largest prefill (1536, llama3-8b
     heads), K2 at the train shape; launches summed over the serve,
     serve_modes, train, train_mesh (the contract run and both ranks'
-    runs on every mesh), serve_moe and train_moe runs (each read from
-    counts zeroed just before it), and listed by phase. Every time is
+    runs on every mesh), serve_moe, train_moe and train_mesh_moe (the
+    one-device run and both ranks' runs) runs (each read from counts
+    zeroed just before it), and listed by phase. Every time is
     device time (``time_device``)."""
     fwd = ctx['flash_timing'][(1, 1536, HQ, True)]
     bwd = ctx['flash_bwd_timing']
@@ -2562,7 +2885,8 @@ def kernels_line(ctx):
                 'train': ctx['train_launches'],
                 'train_mesh': ctx['mesh_launches'],
                 'serve_moe': ctx['moe_serve_launches'],
-                'train_moe': ctx['moe_train_launches']}
+                'train_moe': ctx['moe_train_launches'],
+                'train_mesh_moe': ctx['moe_mesh_launches']}
 
     def launches(name):
         return {phase: n[name] for phase, n in by_phase.items()}
@@ -2624,6 +2948,7 @@ def main() -> int:
                'serve': phase_serve,
                'serve_modes': phase_serve_modes,
                'serve_moe': phase_serve_moe, 'train_moe': phase_train_moe,
+               'train_mesh_moe': phase_train_mesh_moe,
                'breakdown': phase_breakdown}
     for phase in phases:
         if phase == 'device':

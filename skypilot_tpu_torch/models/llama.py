@@ -26,7 +26,9 @@ a block of every sequence, its rotary positions are global, and
 attention is ``parallel/ring_attention.py`` (K1/K2 per visited block);
 with ``pp`` > 1 the ``layers`` dim is split over ``pp`` and the layer
 stack runs as GPipe stages (``parallel/pipeline.py``). Not both at once,
-as in JAX; experts (ep) are not ported yet.
+as in JAX. ``ep`` splits only the experts of an MoE model
+(``models/mixtral.py``); activations and every other weight are
+replicated over it.
 """
 from __future__ import annotations
 
@@ -253,19 +255,17 @@ class LlamaModel(nn.Module):
 
     @staticmethod
     def _check_mesh(mesh: Mesh, rules: LogicalRules) -> None:
-        """The axes this port takes: dp, fsdp, tp, dcn, sp (ring
-        attention) and pp (pipeline stages), not sp with pp."""
-        if mesh.shape['ep'] > 1:
-            raise NotImplementedError(
-                f'mesh axis ep={mesh.shape["ep"]} is not yet ported to the '
-                'PyTorch model (ROADMAP.md queue 1, item 8)')
+        """The layouts this port takes: dp, fsdp, tp, dcn, sp (ring
+        attention), pp (pipeline stages) and ep (experts; a dense model
+        is replicated over it, as under GSPMD), not sp with pp."""
         if mesh.shape['pp'] > 1 and mesh.shape['sp'] > 1:
             raise NotImplementedError('pp > 1 with sp > 1 is not supported '
                                       'yet; use ring attention without '
                                       'pipeline stages or vice versa')
         # Weight dims split over batch axes are gathered where used (fsdp);
         # the head, mlp and vocab dims split over the tensor-parallel axes
-        # stay split. Other layouts GSPMD would take are not ported.
+        # stay split, and so do the experts. Other layouts GSPMD would
+        # take are not ported.
         tp = mesh.live(rules.axes('heads'))
         batch = set(rules.axes('batch'))
         for name in ('kv_heads', 'mlp', 'vocab'):
@@ -284,6 +284,10 @@ class LlamaModel(nn.Module):
         if set(seq) & (batch | set(tp)):
             raise NotImplementedError(f'sequence axes {seq} also shard the '
                                       'batch or the heads')
+        expert = mesh.live(rules.axes('expert'))
+        if set(expert) & (batch | set(tp) | set(seq)):
+            raise NotImplementedError(f'expert axes {expert} also shard the '
+                                      'batch, the sequence or the heads')
 
     def logical_axes(self) -> Params:
         return logical_axes(self.config)

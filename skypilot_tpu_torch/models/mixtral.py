@@ -8,8 +8,10 @@ decisions stay stable), ``we_gate``/``we_up [L, E, e, m]`` and
 ``we_down [L, E, m, e]`` in the config dtype, in place of Llama's
 ``w_gate``/``w_up``/``w_down``. The decode engine serves it through its
 ``model=`` hook and the trainer trains it with the router's aux loss.
-Architecture constants follow the public Mixtral-8x7B config (32 layers,
-8 experts, top-2, 14336 ffn dim).
+On a mesh the experts are split over ``ep`` (``logical_axes``, as JAX's
+rules lay them out) and each layer routes the global batch
+(``ops/moe.py`` ``MoeMesh``). Architecture constants follow the public
+Mixtral-8x7B config (32 layers, 8 experts, top-2, 14336 ffn dim).
 """
 from __future__ import annotations
 
@@ -19,9 +21,10 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from skypilot_tpu_torch.models.llama import (LlamaConfig, LlamaModel, Params,
+                                             logical_axes as llama_axes,
                                              param_shapes as llama_shapes)
 from skypilot_tpu_torch.ops.layers import rms_norm
-from skypilot_tpu_torch.ops.moe import moe_ffn
+from skypilot_tpu_torch.ops.moe import MoeMesh, moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +94,23 @@ def param_shapes(config: MixtralConfig) -> Params:
     return shapes
 
 
+def logical_axes(config: MixtralConfig) -> Params:
+    """Llama's ``logical_axes`` with the router's and the experts' in
+    place of the dense feed-forward's (JAX's ``logical_axes``): experts
+    over 'expert', their embed dim over 'embed', their mlp dim over
+    'mlp'."""
+    axes = llama_axes(config)
+    for name in ('w_gate', 'w_up', 'w_down'):
+        axes['layers'].pop(name)
+    axes['layers'].update({
+        'router': ('layers', 'embed', None),
+        'we_gate': ('layers', 'expert', 'embed', 'mlp'),
+        'we_up': ('layers', 'expert', 'embed', 'mlp'),
+        'we_down': ('layers', 'expert', 'mlp', 'embed'),
+    })
+    return axes
+
+
 class MixtralModel(LlamaModel):
     """Llama block stack with a routed-MoE feed-forward."""
 
@@ -99,14 +119,22 @@ class MixtralModel(LlamaModel):
 
     def __init__(self, config: MixtralConfig, device=None, mesh=None,
                  **kwargs):
-        # JAX routes over the global batch (capacity and slot order from
-        # every token); that routing and the expert all-to-all come with
-        # --ep, in one piece.
-        if mesh is not None and mesh.num_devices > 1:
-            raise NotImplementedError(
-                'Mixtral on a mesh of more than one device is not yet '
-                'ported to the PyTorch model (ROADMAP.md queue 1, item 8)')
-        super().__init__(config, device, **kwargs)
+        super().__init__(config, device, mesh, **kwargs)
+        self._moe = None
+        if self.mesh is not None:
+            m, rules = self.mesh, self.rules
+            self._moe = MoeMesh(m, m.live(rules.axes('batch')),
+                                m.live(rules.axes('seq')),
+                                m.live(rules.axes('expert')), self._tp)
+            # A group over several axes is made by every rank together:
+            # make the layer's now, not inside a pipeline stage's tick.
+            if m.device_mesh is not None:
+                for axes in (self._moe.token_axes, self._moe.region_axes):
+                    if len(axes) > 1:
+                        m.group(axes)
+
+    def logical_axes(self) -> Params:
+        return logical_axes(self.config)
 
     @property
     def aux_loss_weight(self) -> float:
@@ -126,5 +154,5 @@ class MixtralModel(LlamaModel):
         h = rms_norm(x, lp['mlp_norm'], c.norm_eps)
         y, aux = moe_ffn(h, lp['router'], lp['we_gate'], lp['we_up'],
                          lp['we_down'], top_k=c.top_k,
-                         capacity_factor=c.capacity_factor)
+                         capacity_factor=c.capacity_factor, on=self._moe)
         return y, aux['aux_loss']

@@ -7,8 +7,8 @@ ring attention (``parallel/ring_attention.py``) and GPipe stages
 (``parallel/pipeline.py``). Axes: ``dp`` data parallel, ``fsdp``
 fully-sharded data parallel, ``tp`` tensor parallel, ``dcn`` cross-slice
 data parallel, ``sp`` sequence parallel (ring attention), ``pp``
-pipeline stages; ``ep`` (experts) is not ported yet (ROADMAP.md queue
-1, item 8).
+pipeline stages, ``ep`` expert parallel (an MoE layer's experts; its
+routing spans the global batch, ``ops/moe.py``).
 """
 from skypilot_tpu_torch.parallel.mesh import (MESH_AXES, MESH_AXIS_DIVISORS,
                                               Mesh, MeshSpec, make_mesh)

@@ -134,12 +134,14 @@ class Mesh:
     def size(self, axes) -> int:
         return math.prod(self.shape[a] for a in as_axes(axes))
 
-    def index(self, axes) -> int:
-        """This rank's position along ``axes``, the first axis major
-        (``lax.axis_index`` of a tuple of axes)."""
+    def index(self, axes, coords: Optional[Dict[str, int]] = None) -> int:
+        """This rank's (or the rank at ``coords``) position along
+        ``axes``, the first axis major (``lax.axis_index`` of a tuple of
+        axes)."""
+        coords = coords or self.coords
         idx = 0
         for a in as_axes(axes):
-            idx = idx * self.shape[a] + self.coords[a]
+            idx = idx * self.shape[a] + coords[a]
         return idx
 
     def ranks(self, axes, coords: Optional[Dict[str, int]] = None

@@ -22,6 +22,9 @@ model calls the collectives itself, as autograd functions:
   every rank holds whole).
 - ``all_gather_rows`` / ``all_to_all``: the embedding's token gather and
   row/feature exchange (``ops/embedding.py``).
+- ``gather_tokens`` / ``own_tokens``: a per-token tensor of every rank
+  in global (b, s) order, and a rank's block of one (the MoE layer's
+  global routing, ``ops/moe.py``).
 - ``ppermute`` / ``send_recv``: a tensor moved a fixed number of places
   along a mesh axis (``lax.ppermute``; the backward is the reverse
   shift), and the scheduled exchanges of ring attention and the
@@ -286,6 +289,50 @@ def all_gather_rows(x: torch.Tensor, mesh: Optional[Mesh], axes
     """All-gather along dim 0, no autograd (e.g. token ids)."""
     axes = () if mesh is None else mesh.live(axes)
     return _gather(x, 0, mesh, axes) if axes else x
+
+
+def token_axes(mesh: Mesh, batch_axes, seq_axes) -> Tuple[str, ...]:
+    """The live axes that split a batch's tokens, in ``MESH_AXES`` order
+    (the batch axes come before ``sp`` there)."""
+    named = set(as_axes(batch_axes)) | set(as_axes(seq_axes))
+    return mesh.live(tuple(a for a in MESH_AXES if a in named))
+
+
+@torch.no_grad()
+def gather_tokens(x: torch.Tensor, mesh: Optional[Mesh], batch_axes,
+                  seq_axes) -> torch.Tensor:
+    """All-gather ``x`` [..., B/b, S/s] (this rank's rows and sequence
+    block of a per-token tensor, e.g. its router's expert ids) over the
+    axes that split the tokens -> [..., B, S] in global (b, s) order:
+    rows placed by each rank's position along the batch axes, and within
+    a row the sequence blocks by its position along the sequence axes.
+    No autograd."""
+    axes = () if mesh is None else token_axes(mesh, batch_axes, seq_axes)
+    if not axes:
+        return x
+    batch, seq = mesh.live(batch_axes), mesh.live(seq_axes)
+    parts = _gather(x.unsqueeze(0), 0, mesh, axes)  # [G, ..., b, s]
+    b, s = x.shape[-2:]
+    out = x.new_empty(*x.shape[:-2], mesh.size(batch) * b,
+                      mesh.size(seq) * s)
+    for g, rank in enumerate(mesh.ranks(axes)):
+        coords = mesh.coords_of(rank)
+        i, j = mesh.index(batch, coords), mesh.index(seq, coords)
+        out[..., i * b:(i + 1) * b, j * s:(j + 1) * s] = parts[g]
+    return out
+
+
+def own_tokens(full: torch.Tensor, mesh: Optional[Mesh], batch_axes,
+               seq_axes) -> torch.Tensor:
+    """This rank's block [..., B/b, S/s] of a per-token tensor [..., B,
+    S] in global order (the inverse of ``gather_tokens``; a view)."""
+    if mesh is None:
+        return full
+    batch, seq = mesh.live(batch_axes), mesh.live(seq_axes)
+    b = full.shape[-2] // mesh.size(batch)
+    s = full.shape[-1] // mesh.size(seq)
+    i, j = mesh.index(batch), mesh.index(seq)
+    return full[..., i * b:(i + 1) * b, j * s:(j + 1) * s]
 
 
 def copy_to(x: torch.Tensor, mesh: Optional[Mesh], axes) -> torch.Tensor:

@@ -20,9 +20,12 @@ sizes it. Every rank makes the same global batch and keeps its rows
 (and, with ``--sp``, its block of each sequence: ring attention);
 ``--pp`` runs the layers as GPipe stages
 (``LlamaConfig.pp_microbatches`` microbatches, default one per stage),
-not together with ``--sp``; rank 0 prints. ``--ep`` above 1, and
-Mixtral on more than one device, exit as not yet ported, naming
-ROADMAP.md.
+not together with ``--sp``; ``--ep`` splits Mixtral's experts (a dense
+Llama is replicated over it, as in JAX), and each MoE layer routes the
+global batch; rank 0 prints.
+
+    python -m skypilot_tpu_torch.train.run --model mixtral \
+        --preset mixtral-8x7b --ep 8 --fsdp auto --batch 16 --seq 4096
 
     SKYTPU_COORDINATOR_ADDR=10.0.0.1:8476 SKYTPU_NUM_PROCESSES=2 \
     SKYTPU_PROCESS_ID=0 python -m skypilot_tpu_torch.train.run \
@@ -92,10 +95,6 @@ def synthetic_tokens(step: int, batch: int, seq: int, vocab: int,
                          device=device)
 
 
-NOT_PORTED = 'is not yet ported to the PyTorch trainer (ROADMAP.md queue 1, ' \
-    'item 8)'
-
-
 def mesh_spec(args, n: int, num_slices: int):
     """The mesh over ``n`` devices, sized with the JAX trainer's
     arithmetic and messages: ``--fsdp auto`` takes every device the other
@@ -117,18 +116,6 @@ def mesh_spec(args, n: int, num_slices: int):
                 f'!= {n} devices')
     return MeshSpec(dcn=dcn, pp=args.pp, dp=args.dp, fsdp=fsdp, ep=args.ep,
                     sp=args.sp, tp=args.tp)
-
-
-def _check_ported(args, world: int) -> None:
-    if args.ep > 1:
-        raise SystemExit(f'--ep {args.ep}: {NOT_PORTED}')
-    asked = (world > 1 or args.dp > 1 or args.tp > 1 or args.sp > 1
-             or args.pp > 1
-             or (args.fsdp != 'auto' and int(args.fsdp) > 1)
-             or (args.dcn != 'auto' and int(args.dcn) > 1))
-    if args.model == 'mixtral' and asked:
-        raise SystemExit(f'--model mixtral on a mesh of more than one '
-                         f'device {NOT_PORTED}')
 
 
 def _local_worker(argv, local_index: int, local_devices: int,
@@ -202,7 +189,6 @@ def _train(args, batch_fn, local_index: int, local_devices: int,
     from skypilot_tpu_torch.train import CheckpointManager, Trainer
     from skypilot_tpu_torch.utils.device import resolve_device
     device_type = resolve_device(args.device).type
-    _check_ported(args, 1)
     # No-op for one rank; a group over the SKYTPU_* contract otherwise. A
     # group the caller set up is used as it is, and left up at the end.
     owns_group = not distributed.is_initialized()
@@ -213,7 +199,6 @@ def _train(args, batch_fn, local_index: int, local_devices: int,
     skytpu_callback.mark('jax_ready')
 
     n = distributed.world_size()
-    _check_ported(args, n)
     spec = mesh_spec(args, n, distributed.num_slices())
     mesh = make_mesh(spec, device_type)
     rules = multislice_rules() if spec.dcn > 1 else llama.DEFAULT_RULES

@@ -10,10 +10,12 @@ place and returns a ``TrainState`` that holds the same tensors.
 
 On a mesh (the model's) each rank holds its shards of the parameters and
 of the AdamW moments and trains on its rows of the global batch
-(``shard_batch``). What GSPMD did for the JAX trainer is explicit: the
-loss is vocab-parallel and global (``cross_entropy_loss``), each leaf's
-gradient is summed over the batch axes that do not split it, and the
-clip's global norm counts every element once. Loss and grad norm are
+(``shard_batch``; microbatch-major when the batch is split into
+microbatches, so that each is JAX's global one). What GSPMD did for the
+JAX trainer is explicit: the loss is vocab-parallel and global
+(``cross_entropy_loss``), each leaf's gradient is summed over the batch
+axes that do not split it, and the clip's global norm counts every
+element once. Loss and grad norm are
 global, equal on every rank.
 """
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from skypilot_tpu_torch.models.llama import LlamaModel, Params
 from skypilot_tpu_torch.parallel import sharding
-from skypilot_tpu_torch.parallel.mesh import MESH_AXES, Mesh
+from skypilot_tpu_torch.parallel.mesh import Mesh
 from skypilot_tpu_torch.parallel.sharding import DEFAULT_RULES, LogicalRules
 from skypilot_tpu_torch.utils.tree import unflatten
 
@@ -87,8 +89,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 def token_axes_of(mesh: Mesh, rules: LogicalRules) -> Tuple[str, ...]:
     """The live mesh axes that split the tokens of a batch: the batch
     axes and the sequence axes, in ``MESH_AXES`` order."""
-    named = set(rules.axes('batch')) | set(rules.axes('seq'))
-    return mesh.live(tuple(a for a in MESH_AXES if a in named))
+    return sharding.token_axes(mesh, rules.axes('batch'), rules.axes('seq'))
 
 
 def leaf_names(params: Params) -> List[str]:
@@ -262,7 +263,9 @@ class Trainer:
         that do not split the leaf (the split ones summed in the gather's
         backward), so every rank holds the global gradient of its shard.
         Weights are replicated over sp, each rank's tokens adding to them
-        (GSPMD's sum for JAX); pp splits no tokens and is not summed."""
+        (GSPMD's sum for JAX); pp and ep split no tokens and are not
+        summed (an expert's gradient is whole on the ep rank holding it,
+        the router's on every ep rank: ``ops/moe.py``)."""
         if self.mesh is None:
             return grads
         tokens = token_axes_of(self.mesh, self.model.rules)
@@ -360,25 +363,51 @@ class Trainer:
             return state
         return ckpt_mgr.restore(state)
 
+    def microbatches(self) -> int:
+        """The global batch's microbatches, each routed as a whole: the
+        accumulation steps, times the pipeline's microbatches under pp
+        (JAX splits the global batch, not a rank's rows)."""
+        groups = self.accum_steps
+        if self.mesh is not None and self.mesh.shape['pp'] > 1:
+            groups *= (self.model.config.pp_microbatches
+                       or self.mesh.shape['pp'])
+        return groups
+
+    def row_index(self, rows: int) -> torch.Tensor:
+        """The global rows this rank holds of a batch of ``rows``: its
+        block of each microbatch (``microbatches``), microbatch-major, so
+        that its i-th chunk is its part of the global microbatch i. One
+        contiguous block when the batch is one microbatch."""
+        axes = self.mesh.live(self.model.rules.axes('batch'))
+        n, i = self.mesh.size(axes), self.mesh.index(axes)
+        groups = self.microbatches()
+        if rows % (n * groups):
+            raise ValueError(f'global batch {rows} not divisible by {n} '
+                             f'batch shards {axes} x {groups} microbatches')
+        return torch.arange(rows).view(groups, n, -1)[:, i].reshape(-1)
+
     def shard_batch(self, batch: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
-        """This rank's rows ('batch' -> the rules' batch axes) and
-        sequence block ('seq' -> the sequence axes) of the global batch;
-        the batch as it is on one device. Targets are shifted on the
-        whole sequence before (``train/run.py``), so a block's last
-        target is the next block's first token."""
+        """This rank's rows ('batch' -> the rules' batch axes;
+        ``row_index``) and sequence block ('seq' -> the sequence axes) of
+        the global batch; the batch as it is on one device. Targets are
+        shifted on the whole sequence before (``train/run.py``), so a
+        block's last target is the next block's first token."""
         if self.mesh is None:
             return batch
-        rules = self.model.rules
         out = dict(batch)
-        for dim, logical in ((0, 'batch'), (1, 'seq')):
-            axes = self.mesh.live(rules.axes(logical))
-            n, i = self.mesh.size(axes), self.mesh.index(axes)
-            for key, value in out.items():
-                if value.shape[dim] % n:
-                    raise ValueError(f'global {logical} {value.shape[dim]} '
-                                     f'not divisible by {n} {logical} '
-                                     f'shards {axes}')
-                size = value.shape[dim] // n
-                out[key] = value.narrow(dim, i * size, size)
+        axes = self.mesh.live(self.model.rules.axes('batch'))
+        if axes:
+            rows = next(iter(out.values())).shape[0]
+            index = self.row_index(rows)
+            out = {key: value.index_select(0, index.to(value.device))
+                   for key, value in out.items()}
+        axes = self.mesh.live(self.model.rules.axes('seq'))
+        n, i = self.mesh.size(axes), self.mesh.index(axes)
+        for key, value in out.items():
+            if value.shape[1] % n:
+                raise ValueError(f'global seq {value.shape[1]} not '
+                                 f'divisible by {n} seq shards {axes}')
+            size = value.shape[1] // n
+            out[key] = value.narrow(1, i * size, size)
         return out

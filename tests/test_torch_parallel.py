@@ -238,20 +238,94 @@ def test_embedding_refuses_embed_axes_outside_the_batch(embed):
 
 
 def test_model_refuses_axes_not_ported():
-    """ep is not ported; sp with pp is refused as JAX refuses it; Mixtral
-    takes no mesh, sp and pp included."""
+    """ep is ported: a dense Llama is replicated over it (as GSPMD
+    replicates it) and Mixtral splits its experts over it; Mixtral takes
+    fsdp, sp and pp meshes too. sp with pp is refused as JAX refuses
+    it."""
     from skypilot_tpu_torch.models import mixtral
     mesh = torch_mesh.Mesh(torch_mesh.MeshSpec(ep=2))
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        torch_llama.LlamaModel(CFG, device='cpu', mesh=mesh)
+    model = torch_llama.LlamaModel(CFG, device='cpu', mesh=mesh)
+    assert tuple(model.layers['wq'].shape) == (2, 64, 4, 16)
+    assert tuple(model.layers['w_gate'].shape) == (2, 64, 128)
+    assert all(a != 'ep' for spec in model.specs.values()
+               for entry in spec for a in torch_mesh.as_axes(entry))
     mesh = torch_mesh.Mesh(torch_mesh.MeshSpec(sp=2, pp=2))
     with pytest.raises(NotImplementedError, match='pp > 1 with sp > 1'):
         torch_llama.LlamaModel(CFG, device='cpu', mesh=mesh)
-    for sizes in ({'fsdp': 2}, {'sp': 2}, {'pp': 2}):
-        with pytest.raises(NotImplementedError, match='not yet ported'):
-            mixtral.MixtralModel(mixtral.PRESETS['test-tiny-moe'],
-                                 device='cpu', mesh=torch_mesh.Mesh(
-                                     torch_mesh.MeshSpec(**sizes)))
+    moe = mixtral.PRESETS['test-tiny-moe']
+    for sizes, gate, router in (
+            ({'ep': 2}, (2, 2, 64, 128), (2, 64, 4)),
+            ({'fsdp': 2}, (2, 4, 32, 128), (2, 32, 4)),
+            ({'sp': 2}, (2, 4, 64, 128), (2, 64, 4)),
+            ({'pp': 2}, (1, 4, 64, 128), (1, 64, 4))):
+        model = mixtral.MixtralModel(moe, device='cpu', mesh=torch_mesh.Mesh(
+            torch_mesh.MeshSpec(**sizes)))
+        assert tuple(model.layers['we_gate'].shape) == gate, sizes
+        assert tuple(model.layers['router'].shape) == router, sizes
+
+
+# -- Mixtral's leaves on ep meshes --------------------------------------------
+MOE_MESHES = {'ep2_fsdp2': {'ep': 2, 'fsdp': 2}, 'ep2_tp2': {'ep': 2, 'tp': 2}}
+MOE_LEAVES = ['embed', 'lm_head'] + [
+    f'layers/{n}' for n in ('wq', 'wk', 'wo', 'router', 'we_gate', 'we_up',
+                            'we_down', 'mlp_norm')]
+
+
+@pytest.fixture(scope='module')
+def moe_placed():
+    """mesh name -> (the JAX mesh, Mixtral's params placed by its
+    ``param_shardings``), and the whole params."""
+    from skypilot_tpu.models import mixtral as jax_mixtral
+    cfg = jax_mixtral.PRESETS['test-tiny-moe']
+    whole = jax.tree.map(np.asarray, jax.jit(jax_mixtral.MixtralModel(
+        cfg).init)(jax.random.key(0)))
+    out = {}
+    for name, sizes in MOE_MESHES.items():
+        spec = jax_mesh.MeshSpec(**sizes)
+        mesh = jax_mesh.make_mesh(spec,
+                                  devices=jax.devices()[:spec.num_devices])
+        model = jax_mixtral.MixtralModel(cfg, mesh=mesh)
+        out[name] = (mesh, jax.device_put(jax.tree.map(jnp.asarray, whole),
+                                          model.param_shardings()))
+    return out, whole
+
+
+@pytest.mark.parametrize('mesh_name', MOE_MESHES)
+def test_mixtral_keeps_the_jax_shard_of_every_leaf(moe_placed, mesh_name):
+    """``MixtralModel(mesh=...)`` keeps exactly the shard of every leaf
+    (experts over ep, their embed dim over fsdp and mlp dim over tp, the
+    router's embed dim over fsdp) that JAX's ``param_shardings`` puts
+    on the device at each coordinate; ``init`` keeps the one-device
+    draw's shard."""
+    from skypilot_tpu_torch.models import mixtral
+    placed, whole = moe_placed
+    jmesh, params = placed[mesh_name]
+    cfg = mixtral.PRESETS['test-tiny-moe']
+    tspec = torch_mesh.MeshSpec(**MOE_MESHES[mesh_name])
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    one = dict(_leaves(mixtral.MixtralModel(cfg, device='cpu').init(gen)))
+    jleaves = dict(_leaves(params))
+    for rank in range(tspec.num_devices):
+        tmesh = torch_mesh.Mesh(tspec, rank)
+        model = mixtral.MixtralModel(cfg, device='cpu', mesh=tmesh)
+        got = dict(_leaves(model.params_from_numpy(whole)))
+        device = jmesh.devices[tuple(tmesh.coords[a]
+                                     for a in jmesh.axis_names)]
+        for leaf in MOE_LEAVES:
+            shard = next(s for s in jleaves[leaf].addressable_shards
+                         if s.device == device)
+            np.testing.assert_array_equal(got[leaf].numpy(),
+                                          np.asarray(shard.data))
+        gen.manual_seed(0)
+        drawn = dict(_leaves(model.init(gen)))
+        for leaf in MOE_LEAVES:
+            want = torch_sharding.local_shard(one[leaf], model.specs[leaf],
+                                              tmesh)
+            assert torch.equal(drawn[leaf], want), leaf
+    assert model.specs['layers/we_gate'] == (None, 'ep', 'fsdp', 'tp')
+    assert model.specs['layers/we_down'] == (None, 'ep', 'tp', 'fsdp')
+    assert model.specs['layers/router'] == (None, 'fsdp', None)
 
 
 def test_run_mesh_sizing_matches_jax_arithmetic():

@@ -328,17 +328,19 @@ def test_run_main_synthetic_tokens_are_seeded_per_step():
                                                          'cpu'))
 
 
+# Every mesh flag is ported: at one device a mesh of more is refused with
+# the JAX trainer's sizing messages.
 @pytest.mark.parametrize('extra,match', [
-    (['--ep', '2'], 'not yet ported'),
+    (['--ep', '2'], r'1 devices not divisible by dcn\*tp\*sp\*pp\*ep\*dp=2'),
     (['--tp', '2', '--fsdp', '1'], '!= 1 devices'),
     (['--fsdp', '4'], '!= 1 devices'),
     (['--preset', 'nope'], 'unknown --preset'),
     (['--model', 'mixtral', '--preset', 'test-tiny-moe', '--sp', '2'],
-     'not yet ported'),
+     r'1 devices not divisible by dcn\*tp\*sp\*pp\*ep\*dp=2'),
     (['--model', 'mixtral', '--preset', 'test-tiny-moe', '--pp', '2'],
-     'not yet ported'),
+     r'1 devices not divisible by dcn\*tp\*sp\*pp\*ep\*dp=2'),
     (['--model', 'mixtral', '--preset', 'test-tiny-moe', '--fsdp', '2'],
-     'not yet ported'),
+     '!= 1 devices'),
     (['--tp', '2'], r'1 devices not divisible by dcn\*tp\*sp\*pp\*ep\*dp=2'),
 ])
 def test_run_main_refuses_what_is_not_ported(extra, match):
