@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases device,build,kernel,train_mesh_moe
     python3 chip_smoke.py --phases device,build,kernel,train,train_mesh
     python3 chip_smoke.py --phases build,kernel --parent DIR  # old vs new
+    python3 chip_smoke.py --phases device,build,kernel,bench
 
 Phases, each printing one JSON object per line:
   device  card name and power limit (torch + nvidia-smi);
@@ -89,6 +90,18 @@ Phases, each printing one JSON object per line:
           equal on both ranks, the routing choices that differ from one
           device's (bounded), peak memory and ms per step per rank, and a
           profiled {ep: 2} step (expert bmm, the MoE all-reduce, K1/K2);
+  bench   the port's measurement entry points (skypilot_tpu_torch/bench.py)
+          at their card workload: its train phase (llama-1b, b 1 x 8192,
+          remat 'names_qkv', 2 + 8 steps: tokens/s, MFU, the loss, K1/K2
+          once per layer and step) and decode phase (16 slots, prefill
+          TTFT, K1 once per layer and prefill) in this process; its
+          launched phase as a subprocess (the trainer started cold and
+          warm, startup split by the callback marks); serve_bench.run
+          against a llama-1b replica subprocess at the bench's headline
+          arguments, cut to one concurrency point (12) without the
+          monolithic and int8 arms: completed requests without errors,
+          TTFT/TPOT, the prefix arm's hit rate, the replica's /metrics
+          summary, the card's memory.used peak;
   breakdown  (only when asked for) host and device time per dispatch
           kind of the serve phase's engine, with its costliest ops; an
           admit_many of 4 x 512 against 4 solo admits; the int8 step and
@@ -115,7 +128,8 @@ import urllib.request
 from typing import NamedTuple
 
 ALL_PHASES = ('device', 'build', 'kernel', 'train', 'train_mesh', 'serve',
-              'serve_modes', 'serve_moe', 'train_moe', 'train_mesh_moe')
+              'serve_modes', 'serve_moe', 'train_moe', 'train_mesh_moe',
+              'bench')
 # Run only when named in --phases: a per-dispatch time breakdown.
 EXTRA_PHASES = ('breakdown',)
 KERNELS = ('flash_fwd', 'flash_bwd')
@@ -263,6 +277,26 @@ MOE_EQUIV_CF = 4.0
 MOE_ROUTED_OTHERWISE_MAX = 0.75
 MOE_ORACLE_TOKENS = 16
 MOE_MONOLITHIC = 5  # the serve traffic's monolithic prefills (K1 each)
+# bench: the port's measurement entry points (skypilot_tpu_torch/bench.py)
+# at their card workload. phase_train: llama-1b, b 1 x 8192, remat
+# 'names_qkv' (K1's out and lse kept: one K1 and one K2 per layer and
+# step), 2 + 8 steps; phase_decode: 16 slots, 4 prefills of the 128-token
+# prompt (one K1 per layer each). The kernel phase checks K1 and K2 at the
+# train shape and K1 at the monolithic serve bucket (a 2500-token prompt
+# pads to 2560). The serve call is the bench's headline arm cut to one
+# concurrency point (12, the sweep's first), no monolithic A/B arm and no
+# int8 arm (serve_modes drives int8 KV).
+BENCH_B, BENCH_STEPS, BENCH_PREFILLS = 1, 2 + 8, 4
+BENCH_SERVE_BUCKET = 2560
+BENCH_TRAIN_FIELDS = ('metric', 'value', 'unit', 'vs_baseline',
+                      'equivalent_8b_tokens_per_sec_per_chip',
+                      'model_params_b', 'mfu_pct', 'mfu_6n_pct', 'chip',
+                      'seq_len')
+BENCH_DECODE_FIELDS = ('decode_tokens_per_sec_per_chip', 'decode_batch_slots',
+                       'decode_ttft_ms', 'decode_prompt_len')
+BENCH_LAUNCH_PARTS = ('control_plane_s', 'runtime_startup_s', 'param_init_s',
+                      'first_step_s')
+BENCH_TIMEOUT_S = 600
 
 
 def _device_of(argv):
@@ -474,6 +508,18 @@ def phase_kernel(ctx) -> None:
         if not rec['ok']:
             failures.append(rec)
         del q, k, v
+    # K1 at the bench's train shape (b 1 x 8192) and at its monolithic
+    # serve bucket (b 1 x 2560), llama-1b heads.
+    for s in (TRAIN_SEQ, BENCH_SERVE_BUCKET):
+        q, k, v = _qkv(gen, BENCH_B, s, s, TRAIN_HQ, TRAIN_HKV, HEAD_DIM)
+        rec = check_flash_fwd(q, k, v, True, _fwd_by_kv_head)
+        rec.update(time_flash(ctx, q, k, v, HEAD_DIM ** -0.5,
+                              plain=_fwd_by_kv_head), shape='bench')
+        emit(rec)
+        worst = max(worst, rec['out_max_abs_err'])
+        if not rec['ok']:
+            failures.append(rec)
+        del q, k, v
     ctx['flash'] = {'max_abs_err': worst}
     failures += check_flash_bwd(ctx, gen)
     if failures:
@@ -655,7 +701,9 @@ def check_flash_bwd(ctx, gen):
             ('flash_bwd_timing_moe', (MOE_TRAIN_B, MOE_TRAIN_SEQ, HQ, HKV,
                                       True)),
             ('flash_bwd_timing_moe_ep', (MOE_MESH_B, MOE_TRAIN_SEQ, HQ, HKV,
-                                         True))
+                                         True)),
+            ('flash_bwd_timing_bench', (BENCH_B, TRAIN_SEQ, TRAIN_HQ,
+                                        TRAIN_HKV, True))
     ) + tuple((('flash_bwd_timing_mesh', b, hq),
                (b, TRAIN_SEQ, hq, hkv, True))
               for b, hq, hkv in MESH_KERNEL_SHAPES) + tuple(
@@ -2869,13 +2917,158 @@ def phase_breakdown(ctx) -> None:
                       'card': ctx['smi']})
 
 
+class _MemorySampler:
+    """The card's memory.used (nvidia-smi, MiB) sampled every
+    ``period_s`` on a thread, for a subprocess's peak: what the card held
+    at the start, and the most it held while the block ran."""
+
+    def __init__(self, period_s: float = 0.5):
+        self.period_s = period_s
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def read_mib() -> float:
+        proc = subprocess.run(
+            ['nvidia-smi', '--query-gpu=memory.used',
+             '--format=csv,noheader,nounits'], capture_output=True,
+            text=True, check=True, timeout=30)
+        return float(proc.stdout.strip().splitlines()[0])
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                self.samples.append(self.read_mib())
+            except (subprocess.SubprocessError, OSError, ValueError):
+                pass
+            self._stop.wait(self.period_s)
+
+    def __enter__(self):
+        self.start_mib = self.read_mib()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def phase_bench(ctx) -> None:
+    """The port's measurement entry points (``skypilot_tpu_torch/bench.py``)
+    at their card workload: ``phase_train`` and ``phase_decode`` in this
+    process (their K1/K2 launches counted), the ``launched`` phase as the
+    bench runs it (a subprocess that starts the trainer twice), and
+    ``serve_bench.run`` against a llama-1b replica subprocess with the
+    bench's headline arguments, cut as ``BENCH_*`` says."""
+    import tempfile
+    import torch
+    from skypilot_tpu_torch import bench
+    from skypilot_tpu_torch.benchmark import serve_bench
+    from skypilot_tpu_torch.models.llama import PRESETS
+    from skypilot_tpu_torch.ops import attention as attn
+    layers = PRESETS['llama-1b'].num_layers
+    faults = []
+    launches = {}
+
+    # Train: the headline rate, K1/K2 once per layer and step.
+    attn.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = bench.phase_train(None, 'cuda')
+    train_s = time.perf_counter() - t0
+    launches['train'] = dict(attn.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit({'phase': 'bench', 'part': 'train', 'record': rec,
+          'launches': launches['train'], 'peak_mem_gb': peak_gb,
+          'seconds': train_s, 'card': ctx['smi']})
+    want = {'flash_fwd': BENCH_STEPS * layers, 'flash_bwd': BENCH_STEPS * layers}
+    missing = [f for f in BENCH_TRAIN_FIELDS if f not in rec]
+    if (missing or not rec['value'] > 0 or rec['vs_baseline'] is not None
+            or not 0 < (rec['mfu_pct'] or 0) <= 100
+            or not math.isfinite(rec['train_loss'])
+            or launches['train'] != want):
+        faults.append(f'train: missing {missing}, launches '
+                      f'{launches["train"]} (want {want}), {rec}')
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Decode: the engine alone, one K1 per layer per prefill.
+    attn.reset_launch_counts()
+    rec = bench.phase_decode(None, 'cuda')
+    launches['decode'] = dict(attn.LAUNCHES)
+    emit({'phase': 'bench', 'part': 'decode', 'record': rec,
+          'launches': launches['decode'], 'card': ctx['smi']})
+    want = {'flash_fwd': BENCH_PREFILLS * layers, 'flash_bwd': 0}
+    missing = [f for f in BENCH_DECODE_FIELDS if f not in rec]
+    if (missing or not rec['decode_tokens_per_sec_per_chip'] > 0
+            or not rec['decode_ttft_ms'] > 0
+            or launches['decode'] != want):
+        faults.append(f'decode: missing {missing}, launches '
+                      f'{launches["decode"]} (want {want}), {rec}')
+    ctx['bench_launches'] = {k: launches['train'][k] + launches['decode'][k]
+                             for k in KERNELS}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Launched: the bench's own phase subprocess, as the orchestrator
+    # starts it (its trainers' launches are another process's).
+    fd, out = tempfile.mkstemp(prefix='chip_smoke_launched_', suffix='.json')
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'skypilot_tpu_torch.bench', '--phase',
+         'launched', '--out', out, '--device', 'cuda'], stdout=sys.stderr,
+        timeout=BENCH_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(
+            __file__)))
+    with open(out) as f:
+        rec = json.load(f)
+    os.remove(out)
+    emit({'phase': 'bench', 'part': 'launched', 'record': rec,
+          'rc': proc.returncode, 'seconds': time.perf_counter() - t0,
+          'card': ctx['smi']})
+    for prefix in ('', 'warm_'):
+        parts = [rec.get(prefix + p) for p in BENCH_LAUNCH_PARTS]
+        if (proc.returncode or rec.get(f'{prefix}launched_job_status')
+                != 'SUCCEEDED' or rec.get(f'{prefix}launch_overhead_s')
+                is None or any(p is None or p < 0 for p in parts)):
+            faults.append(f'launched ({prefix or "cold"}): {rec}')
+
+    # Serve: one replica subprocess (it owns the card's memory for its
+    # lifetime); the card's memory.used sampled around it.
+    args = dict(bench.SERVE_CARD, concurrencies=bench.SERVE_CARD[
+        'concurrencies'][:1], ab_monolithic=False,
+        service_name='chip-smoke-serve')
+    t0 = time.perf_counter()
+    with _MemorySampler() as mem:
+        rec = serve_bench.run(device='cuda', **args)
+    serve_s = time.perf_counter() - t0
+    peak_mib = max(mem.samples, default=mem.start_mib)
+    emit({'phase': 'bench', 'part': 'serve', 'args': args, 'record': rec,
+          'card_mem_start_mib': mem.start_mib, 'card_mem_peak_mib': peak_mib,
+          'replica_peak_gb': (peak_mib - mem.start_mib) * 2**20 / 1e9,
+          'seconds': serve_s, 'card': ctx['smi']})
+    sweep = rec.get('serve_sweep') or [{}]
+    point = sweep[0]
+    if (not point.get('completed') or point.get('errors')
+            or not rec.get('serve_ttft_p50_ms', 0) > 0
+            or not rec.get('serve_tpot_p50_ms', 0) > 0
+            or not rec.get('serve_prefix_hit_rate', 0) > 0
+            or 'skytpu_serve_ttft_ms' not in rec.get(
+                'serve_replica_metrics_summary', {})):
+        faults.append(f'serve: {rec}')
+    if faults:
+        raise RuntimeError(f'bench phase: {faults}')
+
+
 def kernels_line(ctx):
     """K1 timed at the serve path's largest prefill (1536, llama3-8b
     heads), K2 at the train shape; launches summed over the serve,
     serve_modes, train, train_mesh (the contract run and both ranks'
-    runs on every mesh), serve_moe, train_moe and train_mesh_moe (the
-    one-device run and both ranks' runs) runs (each read from counts
-    zeroed just before it), and listed by phase. Every time is
+    runs on every mesh), serve_moe, train_moe, train_mesh_moe (the
+    one-device run and both ranks' runs) and bench (its in-process train
+    and decode) runs (each read from counts zeroed just before it), and
+    listed by phase. Every time is
     device time (``time_device``)."""
     fwd = ctx['flash_timing'][(1, 1536, HQ, True)]
     bwd = ctx['flash_bwd_timing']
@@ -2886,7 +3079,8 @@ def kernels_line(ctx):
                 'train_mesh': ctx['mesh_launches'],
                 'serve_moe': ctx['moe_serve_launches'],
                 'train_moe': ctx['moe_train_launches'],
-                'train_mesh_moe': ctx['moe_mesh_launches']}
+                'train_mesh_moe': ctx['moe_mesh_launches'],
+                'bench': ctx['bench_launches']}
 
     def launches(name):
         return {phase: n[name] for phase, n in by_phase.items()}
@@ -2949,7 +3143,7 @@ def main() -> int:
                'serve_modes': phase_serve_modes,
                'serve_moe': phase_serve_moe, 'train_moe': phase_train_moe,
                'train_mesh_moe': phase_train_mesh_moe,
-               'breakdown': phase_breakdown}
+               'bench': phase_bench, 'breakdown': phase_breakdown}
     for phase in phases:
         if phase == 'device':
             continue

@@ -118,9 +118,23 @@ def mesh_spec(args, n: int, num_slices: int):
                     sp=args.sp, tp=args.tp)
 
 
+def _arm_callback(args) -> bool:
+    """Arm the benchmark callback and mark the process start (a no-op
+    without $SKYTPU_BENCHMARK_LOG_DIR). Done before the card is touched,
+    as the JAX trainer marks it before it starts its backend: the bench's
+    launch split reads runtime start-up as the time from this mark to
+    'jax_ready'."""
+    from skypilot_tpu_torch import callbacks as skytpu_callback
+    armed = skytpu_callback.init(total_steps=args.steps)
+    skytpu_callback.mark('proc_start')
+    return armed
+
+
 def _local_worker(argv, local_index: int, local_devices: int,
                   coordinator: str) -> None:
-    _train(parse_args(argv), None, local_index, local_devices, coordinator)
+    args = parse_args(argv)
+    _train(args, None, local_index, local_devices, coordinator,
+           _arm_callback(args))
 
 
 def local_workers(device_type: str,
@@ -149,9 +163,10 @@ def main(argv=None,
     for them and returns nothing."""
     args = parse_args(argv)
     from skypilot_tpu_torch.utils.device import resolve_device
+    cb_armed = _arm_callback(args)
     local = local_workers(resolve_device(args.device).type, batch_fn)
     if local == 1:
-        return _train(args, batch_fn, 0, 1, None)
+        return _train(args, batch_fn, 0, 1, None, cb_armed)
     import multiprocessing
     import socket
     from skypilot_tpu_torch.runtime import distributed
@@ -175,10 +190,8 @@ def main(argv=None,
 
 
 def _train(args, batch_fn, local_index: int, local_devices: int,
-           coordinator: Optional[str]) -> Dict[str, Any]:
+           coordinator: Optional[str], cb_armed: bool) -> Dict[str, Any]:
     from skypilot_tpu_torch import callbacks as skytpu_callback
-    cb_armed = skytpu_callback.init(total_steps=args.steps)
-    skytpu_callback.mark('proc_start')
 
     import torch
 

@@ -3,8 +3,10 @@ histograms with Prometheus text exposition.
 
 The replica's side of ``skypilot_tpu/utils/metrics.py``: the same
 registry, instruments and ``skytpu_*`` names, so the serve controller
-scrapes a PyTorch replica as it scrapes a JAX one. The scrape-side
-parsers (the controller's side) are not copied.
+scrapes a PyTorch replica as it scrapes a JAX one. Of the scrape side,
+the exposition parser that the serve benchmark reads a replica with
+(``parse_text``, ``sample_value``, ``histogram_cumulative``) is copied;
+the load balancer's fleet roll-ups are not.
 
 The serve path computes TTFT estimates, queue depths, and per-step
 timings and (before this module) threw them away as ad-hoc dict
@@ -404,3 +406,67 @@ def histogram(name: str, help_text: str = '',
               buckets: Sequence[float] = DEFAULT_BUCKETS_MS,
               labels: Optional[Dict[str, str]] = None) -> Histogram:
     return REGISTRY.histogram(name, help_text, buckets, labels)
+
+
+# ---- scrape-side helpers ----------------------------------------------------
+_SAMPLE_RE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)\s*$')
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+Sample = Tuple[str, Tuple[Tuple[str, str], ...], float]
+
+
+def parse_text(text: str) -> List[Sample]:
+    """Parse Prometheus text exposition into (name, labels, value)
+    samples. Tolerant: comment/blank/malformed lines are skipped — a
+    scrape of an arbitrary replica must never crash the scraper."""
+    out: List[Sample] = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith('#'):
+            continue
+        if ' # ' in line:  # OpenMetrics exemplar suffix on a sample
+            line = line.split(' # ', 1)[0].rstrip()
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            continue
+        name, raw_labels, raw_value = m.groups()
+        try:
+            value = float(raw_value)
+        except ValueError:
+            continue
+        labels = tuple((k, v) for k, v in
+                       _LABEL_RE.findall(raw_labels or ''))
+        out.append((name, labels, value))
+    return out
+
+
+def sample_value(samples: Sequence[Sample], name: str,
+                 labels: Optional[Dict[str, str]] = None
+                 ) -> Optional[float]:
+    """First sample value for ``name`` (None if absent). Without
+    ``labels`` the first sample of any labeling wins; with ``labels``
+    the sample's labels must contain every given pair."""
+    want = tuple(sorted((labels or {}).items()))
+    for n, lbl, v in samples:
+        if n != name:
+            continue
+        if not want or set(want) <= set(lbl):
+            return v
+    return None
+
+
+def histogram_cumulative(samples: Sequence[Sample],
+                         name: str) -> List[Tuple[float, float]]:
+    """Reconstruct [(le, cumulative)] for histogram ``name`` from parsed
+    samples (scrape-side counterpart of Histogram.cumulative)."""
+    out: List[Tuple[float, float]] = []
+    for n, labels, v in samples:
+        if n != f'{name}_bucket':
+            continue
+        le = dict(labels).get('le')
+        if le is None:
+            continue
+        out.append((float('inf') if le == '+Inf' else float(le), v))
+    out.sort(key=lambda p: p[0])
+    return out

@@ -131,3 +131,13 @@ def test_chip_smoke_alone_or_without_a_card_prints_no_result(tmp_path):
                           env=env, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_the_measurement_entry_points_are_scanned():
+    """The bench orchestrator and its harnesses are port modules the
+    scans above cover; each imports without JAX."""
+    mods = _port_modules()
+    for mod in ('skypilot_tpu_torch.bench',
+                'skypilot_tpu_torch.benchmark.serve_bench',
+                'skypilot_tpu_torch.benchmark.kv_microbench'):
+        assert mod in mods, mod
