@@ -18,13 +18,16 @@ Phases, each printing one JSON object per line:
           one nvcc per source, all started together; per kernel function
           its registers and spills (-Xptxas -v) and its count of wgmma
           (HGMMA) and TMA-load (UTMALDG) SASS instructions (cuobjdump),
-          failing if a flash kernel spills or lacks either;
+          failing if a kernel spills or a flash kernel lacks either (the
+          paged decode-attention kernel K3 is mma.sync fed by cp.async);
   kernel  each kernel against its plain PyTorch version on the card, with
           stated tolerances, and timed beside its bound, its plain
           version and the PyTorch library call that computes the same
           function, at the shapes every phase gives it (the sp 2 ring's
           blocks among them: b 4 x 4096 x 4096, causal and full; the
-          service's prefill buckets: b 1 x 16, 64 and 512, 16/8). Times
+          service's prefill buckets: b 1 x 16, 64 and 512, 16/8; K3 at
+          the conv cell's verify and plain steps, 64 slots x 8192, 32/8,
+          conversation-mix lengths, beside its byte bound). Times
           are device time: the kernels' durations from torch.profiler
           (CUPTI), averaged over the calls, with CUDA events around the
           loop of calls beside them; a device time below its bound, or
@@ -168,7 +171,21 @@ ALL_PHASES = ('device', 'build', 'kernel', 'train', 'train_mesh', 'serve',
               'launch', 'service', 'bench')
 # Run only when named in --phases: a per-dispatch time breakdown.
 EXTRA_PHASES = ('breakdown',)
-KERNELS = ('flash_fwd', 'flash_bwd')
+KERNELS = ('flash_fwd', 'flash_bwd', 'paged_attn')
+# The K1/K2 keys of a launch-count dict (ops/attention.py LAUNCHES), which
+# the phases that check K1 and K2 compare; K3's are checked by the phases
+# that decode.
+FLASH = ('flash_fwd', 'flash_bwd')
+# K3 at the serving cells' verify step (perfbench's mistral-7b.conv): 64
+# slots x 8192 (128 blocks of 64 rows), 6000 pool blocks, 32/8 heads of
+# 128, T = 1 + 4 drafts (and the plain step's T 1), lengths drawn from the
+# conversation mix (perfbench/traffic/conv.json: each slot a prompt plus a
+# share of its output). Per (slot, query head) relative RMS error within
+# PAGED_HEAD_RTOL: bf16 O on both sides, P rounded to bf16 against K3's
+# running maximum per warp and split (one bf16 step, 2^-8) rather than
+# the row's.
+PAGED_B, PAGED_MAX_LEN, PAGED_BLOCKS, PAGED_BS = 64, 8192, 6000, 64
+PAGED_HEAD_RTOL = 1e-2
 
 # Llama-3-8B attention widths.
 HQ, HKV, HEAD_DIM = 32, 8, 128
@@ -242,6 +259,13 @@ MESH_RUNS = (('fsdp2', ['--fsdp', '2']), ('tp2', ['--tp', '2', '--fsdp', '1']),
 # runs 8 layers on 2 microbatches of b 2 x 8192 (the fsdp 2 shape).
 RING_B, RING_SEQ = TRAIN_B, TRAIN_SEQ // 2
 MESH_TIMEOUT_S = 600
+
+
+def _flash(launches):
+    """K1's and K2's counts of a launch-count dict (None stays None)."""
+    if launches is None:
+        return None
+    return {k: launches.get(k, 0) for k in FLASH}
 
 
 def mesh_launches(name: str, rank: int, layers: int,
@@ -581,13 +605,15 @@ def phase_build(ctx) -> None:
               'nvcc_s': round(float(info['seconds']), 3),
               'wall_s': round(wall, 3), 'functions': functions})
         for fn, rec in functions.items():
-            if 'delta' in fn:  # K2's delta pass: a row sum, no product
-                continue
-            if (rec.get('spill_stores') or rec.get('spill_loads')
-                    or not rec.get('HGMMA') or not rec.get('UTMALDG')):
+            if rec.get('spill_stores') or rec.get('spill_loads'):
+                faults.append((fn, rec))
+            # K2's delta pass is a row sum; K3 is mma.sync fed by cp.async.
+            if name in FLASH and 'delta' not in fn and not (
+                    rec.get('HGMMA') and rec.get('UTMALDG')):
                 faults.append((fn, rec))
     if faults:
-        raise RuntimeError(f'flash kernels spill or lack wgmma/TMA: {faults}')
+        raise RuntimeError(f'kernels spill, or flash kernels lack '
+                           f'wgmma/TMA: {faults}')
 
 
 def phase_kernel(ctx) -> None:
@@ -695,6 +721,7 @@ def phase_kernel(ctx) -> None:
         del q, k, v
     ctx['flash'] = {'max_abs_err': worst}
     failures += check_flash_bwd(ctx, gen)
+    failures += check_paged_attn(ctx)
     if failures:
         raise RuntimeError(f'{len(failures)} kernel case(s) disagree with '
                            f'their plain versions: {failures}')
@@ -902,16 +929,19 @@ def build_parent_kernels(parent: str):
     csrc = os.path.join(parent, 'skypilot_tpu_torch', 'csrc')
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
                        'kernels-parent')
+    names = [n for n in KERNELS
+             if os.path.exists(os.path.join(csrc, f'{n}.cu'))]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(lambda n: _build.build(n, csrc_dir=csrc,
                                                      build_dir=out),
-                              KERNELS))
-    emit({'phase': 'kernel', 'parent': parent,
+                              names))
+    emit({'phase': 'kernel', 'parent': parent, 'kernels': names,
           'build_s': time.perf_counter() - t0})
-    libs = dict(zip(KERNELS, map(ctypes.CDLL, paths)))
-    return {'flash_fwd': attn.bind_fwd(libs['flash_fwd']),
-            'flash_bwd': attn.bind_bwd(libs['flash_bwd'])}
+    libs = dict(zip(names, map(ctypes.CDLL, paths)))
+    bind = {'flash_fwd': attn.bind_fwd, 'flash_bwd': attn.bind_bwd,
+            'paged_attn': attn.bind_paged}
+    return {n: bind[n](lib) for n, lib in libs.items()}
 
 
 @contextlib.contextmanager
@@ -919,18 +949,20 @@ def _kernels_from(libs):
     """Route the wrappers to other libraries (``build_parent_kernels``)
     for the duration of the block."""
     from skypilot_tpu_torch.ops import attention as attn
-    saved = attn._flash_lib, attn._flash_bwd_lib
+    saved = attn._flash_lib, attn._flash_bwd_lib, attn._paged_lib
     attn._flash_lib = libs['flash_fwd']
     attn._flash_bwd_lib = libs['flash_bwd']
+    attn._paged_lib = libs.get('paged_attn', attn._paged_lib)
     try:
         yield
     finally:
-        attn._flash_lib, attn._flash_bwd_lib = saved
+        attn._flash_lib, attn._flash_bwd_lib, attn._paged_lib = saved
 
 
-def _parent_ms(ctx, fn, iters, bound_ms=None, what=''):
-    """Device ms of ``fn`` with the parent checkout's kernels, or None."""
-    if not ctx.get('parent_libs'):
+def _parent_ms(ctx, fn, iters, bound_ms=None, what='', kernel='flash_fwd'):
+    """Device ms of ``fn`` with the parent checkout's kernels, or None
+    (also where the parent has no ``kernel``)."""
+    if kernel not in (ctx.get('parent_libs') or {}):
         return None
     with _kernels_from(ctx['parent_libs']):
         return time_device(fn, iters, bound_ms=bound_ms,
@@ -1058,6 +1090,129 @@ def time_flash(ctx, q, k, v, scale, sets=L2_SETS, plain=None, causal=True):
     return timing
 
 
+def paged_bound_ms(lengths, t: int, hq: int, hkv: int, d: int, max_keys: int,
+                   ctx):
+    """K3: 4*hq*d FLOPs per visible (query row, key) pair; the live K
+    and V rows (each slot's min(length + t, max_keys)) read once in bf16,
+    q read and out written in bf16 (tables and lengths are bytes per
+    slot, left out)."""
+    keys = [min(n + t, max_keys) for n in lengths]
+    flops = 4.0 * hq * d * sum(
+        min(n + i + 1, max_keys) for n in lengths for i in range(t))
+    nbytes = (2.0 * 2 * hkv * d * sum(keys)
+              + 2.0 * 2 * len(lengths) * t * hq * d)
+    bound_ms, bound_by = _bound(flops, nbytes, ctx)
+    return bound_ms, bound_by, nbytes
+
+
+def conv_lengths(rnd, n: int, t: int, max_len: int):
+    """``n`` slot lengths as the conversation mix leaves them mid-run:
+    a prompt and a uniform share of an output, each drawn from the
+    mix's log-normal quantiles (perfbench/traffic/conv.json), capped so
+    that t query rows fit."""
+    from perfbench import traffic
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'perfbench', 'traffic', 'conv.json')) as f:
+        mix = json.load(f)
+    prompts = traffic._lengths(mix['prompt'], n)
+    outputs = traffic._lengths(mix['output'], n)
+    rnd.shuffle(prompts)
+    rnd.shuffle(outputs)
+    return [min(p + int(rnd.random() * o), max_len - t)
+            for p, o in zip(prompts, outputs)]
+
+
+def paged_inputs(gen, rnd, t: int):
+    """K3's inputs at PAGED_* shapes: bf16 q and pools from ``gen``,
+    every slot's table a distinct draw of pool blocks (as the allocator
+    hands them out), conversation-mix lengths from ``rnd``."""
+    import torch
+    dev = torch.device('cuda')
+    max_blocks = PAGED_MAX_LEN // PAGED_BS
+
+    def rnd_bf16(*shape):
+        return torch.randn(*shape, device=dev, generator=gen,
+                           dtype=torch.float32).to(torch.bfloat16)
+    q = rnd_bf16(PAGED_B, t, HQ, HEAD_DIM)
+    k_pool = rnd_bf16(PAGED_BLOCKS, HKV, PAGED_BS, HEAD_DIM)
+    v_pool = rnd_bf16(PAGED_BLOCKS, HKV, PAGED_BS, HEAD_DIM)
+    lengths = conv_lengths(rnd, PAGED_B, t, PAGED_MAX_LEN)
+    ids = list(range(1, PAGED_BLOCKS))
+    rnd.shuffle(ids)
+    rows, at = [], 0
+    for n in lengths:
+        used = -(-(n + t) // PAGED_BS)
+        rows.append(ids[at:at + used] + [0] * (max_blocks - used))
+        at += used
+    tables = torch.tensor(rows, dtype=torch.long, device=dev)
+    return (q, k_pool, v_pool, tables,
+            torch.tensor(lengths, dtype=torch.long, device=dev), lengths)
+
+
+def check_paged_attn(ctx):
+    """K3 against its plain version at the conv cell's verify (T 5) and
+    plain (T 1) steps, then timed beside its byte bound, its plain
+    version (and the parent checkout's K3, where it has one). Returns
+    the failed cases' records."""
+    import random
+    import torch
+    from skypilot_tpu_torch.ops import attention as attn
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(4321)
+    rnd = random.Random(4321)
+    failures = []
+    for t in (5, 1):
+        q, k_pool, v_pool, tables, lens_t, lengths = paged_inputs(gen, rnd,
+                                                                  t)
+        before = attn.LAUNCHES['paged_attn']
+        got = attn.paged_attention(q, k_pool, v_pool, tables, lens_t)
+        torch.cuda.synchronize()
+        want = attn.paged_attention_reference(q, k_pool, v_pool, tables,
+                                              lens_t)
+        g, w = got.float(), want.float()
+        head_err = ((g - w).pow(2).sum(dim=(1, 3)).sqrt()
+                    / w.pow(2).sum(dim=(1, 3)).sqrt().clamp(min=1e-30)
+                    ).max().item()
+        ok = (head_err <= PAGED_HEAD_RTOL and bool(torch.isfinite(g).all())
+              and attn.LAUNCHES['paged_attn'] == before + 1)
+        del got, want, g, w
+        bound_ms, bound_by, nbytes = paged_bound_ms(
+            lengths, t, HQ, HKV, HEAD_DIM, PAGED_MAX_LEN, ctx)
+
+        def kernel():
+            attn.paged_attention(q, k_pool, v_pool, tables, lens_t)
+
+        what = (f'K3 b {PAGED_B} x t {t}, {HQ}/{HKV} heads, '
+                f'{PAGED_MAX_LEN} keys')
+        kernel_ms, kernel_event_ms = time_device(kernel, iters=50,
+                                                 bound_ms=bound_ms,
+                                                 what=what)
+        parent_ms = _parent_ms(ctx, kernel, 50, bound_ms, what,
+                               kernel='paged_attn')
+        plain_ms = time_device(
+            lambda: attn.paged_attention_reference(q, k_pool, v_pool,
+                                                   tables, lens_t),
+            iters=3, warmup=1, bound_ms=bound_ms, what=f'plain {what}')[0]
+        rec = {'phase': 'kernel', 'kernel': 'paged_attn', 'b': PAGED_B,
+               't': t, 'hq': HQ, 'hkv': HKV, 'head_dim': HEAD_DIM,
+               'block': PAGED_BS, 'max_len': PAGED_MAX_LEN,
+               'live_keys': sum(min(n + t, PAGED_MAX_LEN) for n in lengths),
+               'bytes': nbytes, 'head_rel_err': head_err,
+               'head_rtol': PAGED_HEAD_RTOL, 'kernel_ms': kernel_ms,
+               'kernel_event_ms': kernel_event_ms, 'parent_ms': parent_ms,
+               'plain_ms': plain_ms, 'bound_ms': bound_ms,
+               'bound_by': bound_by, 'roofline_share': bound_ms / kernel_ms,
+               'library_ms': None, 'ms_sources': _sources(what, 'library'),
+               'ok': ok, 'card': ctx['smi']}
+        emit(rec)
+        ctx.setdefault('paged_timing', {})[t] = rec
+        if not ok:
+            failures.append(rec)
+        del q, k_pool, v_pool, tables, lens_t
+        torch.cuda.empty_cache()
+    return failures
+
+
 def _rel_l2(got, want) -> float:
     return ((got.float() - want.float()).norm()
             / want.float().norm().clamp(min=1e-30)).item()
@@ -1104,7 +1259,7 @@ def phase_train(ctx) -> None:
             raise RuntimeError(f'train losses not finite and falling: '
                                f'{losses}')
         want = {'flash_fwd': 3 * layers, 'flash_bwd': 3 * layers}
-        if launches != want:
+        if _flash(launches) != want:
             raise RuntimeError(f'3 dots steps launched {launches}, want '
                                f'{want}')
         ctx['train_launches'] = launches
@@ -1145,7 +1300,7 @@ def phase_train(ctx) -> None:
             if (rec['loss'] != dots_rec['loss']
                     or abs(rec['grad_norm'] - dots_rec['grad_norm'])
                     > GRAD_NORM_RTOL * dots_rec['grad_norm']
-                    or rec['launches'] != want_launches):
+                    or _flash(rec['launches']) != want_launches):
                 raise RuntimeError(f'remat {policy} off dots: {named}')
         # 'names' keeps on the device what 'names_offload' keeps on the
         # host: the peaks must differ by at least half of it.
@@ -1174,7 +1329,8 @@ def phase_train(ctx) -> None:
                 or again['loss'] != losses[2]):
             raise RuntimeError(f'resume did not reproduce step 3: '
                                f'{resumed}')
-        if resumed['launches'] != {'flash_fwd': layers, 'flash_bwd': layers}:
+        if _flash(resumed['launches']) != {'flash_fwd': layers,
+                                           'flash_bwd': layers}:
             raise RuntimeError(f'resumed step launched {resumed}')
 
         # One 'full' step: K1 runs again inside the backward.
@@ -1405,7 +1561,8 @@ def phase_train_mesh(ctx) -> None:
                 phase_launches[k] += n
         if (max(loss_rel) > GATE_LOSS_RTOL or max(norm_rel) > GATE_GRAD_RTOL
                 or max(got['update_rel_l2'].values()) > MESH_UPDATE_RTOL
-                or any(r['launches'] != mesh_launches(name, rank, layers)
+                or any(_flash(r['launches'])
+                       != mesh_launches(name, rank, layers)
                        for rank, r in enumerate(recs))
                 or any(r['losses'] != got['losses'] for r in recs)):
             faults.append(name)
@@ -1874,6 +2031,7 @@ def phase_serve(ctx) -> None:
     ttfts = sorted(r['ttft_ms'] for _, r in replies)
     n_tokens = sum(len(r['tokens']) for _, r in replies)
     ctx['flash_launches'] = launches['flash_fwd']
+    ctx['serve_paged_launches'] = launches['paged_attn']
     emit({'phase': 'serve', 'preset': 'llama3-8b',
           'params': cfg.num_params, 'dtype': str(cfg.dtype),
           'batch_slots': 8, 'max_len': 4096,
@@ -1913,11 +2071,13 @@ def _modes_wave(base, sched, wave, n_new):
     return [r['tokens'] for _, r in replies], launches, delta
 
 
-def _int8_logits_check(eng_b, eng_q, params, toks, lens, steps):
-    """Teacher-forced along the bf16 stream: admit the wave into a bf16
-    and an int8 engine, then at every step compare the int8 pool's
-    logits with bf16's from the same tokens (relative L2 per slot), and
-    where the greedy tokens part, bf16's top-2 margin beside the largest
+def _logits_check(eng_b, eng_q, params, toks, lens, steps):
+    """Teacher-forced along the first engine's stream: admit the wave
+    into both (a bf16 and an int8 pool; or a contiguous pool, whose steps
+    attend over gathered rows, and a paged one, whose steps attend through
+    K3), then at every step compare the second's logits with the
+    first's from the same tokens (relative L2 per slot), and where the
+    greedy tokens part, the first's top-2 margin beside the largest
     logit difference."""
     import torch
     n = len(lens)
@@ -2139,17 +2299,22 @@ def phase_serve_modes(ctx) -> None:
                                      **geometry)
     log_p = _drive_engine(paged, params, toks, lens, 24, 4)
     log_c = _drive_engine(contiguous, params, toks, lens, 24, 4)
+    # Printed, not gated: the paged steps attend through K3, the
+    # contiguous ones over gathered rows, so a near tie on random weights
+    # may part the streams. The gate is the teacher-forced check below.
     rec['contiguous_equals_paged'] = log_c == log_p
     rec['contiguous_drive'] = {'admit_many': len(wave), 'steps': 24,
                                'verify_steps': 4}
+    rec['paged_logits'] = _logits_check(contiguous, paged, params, toks,
+                                        lens, MODES_NEW)
     del contiguous
     torch.cuda.empty_cache()
     rec['admit_many_vs_solo'] = _admit_many_vs_solo(paged, params, toks,
                                                     lens)
     quant = decode.DecodeEngine(cfg, kv_block=block, kv_dtype='int8',
                                 **geometry)
-    rec['int8_logits'] = _int8_logits_check(paged, quant, params, toks,
-                                            lens, MODES_NEW)
+    rec['int8_logits'] = _logits_check(paged, quant, params, toks, lens,
+                                       MODES_NEW)
     read_launches()
     rec['launches'] = dict(total)
     rec['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
@@ -2178,14 +2343,21 @@ def phase_serve_modes(ctx) -> None:
             or any(p['bf16_top2_margin'] >= p['max_abs_logit_diff']
                    for p in logits['parted'])):
         faults.append('int8 logits off bf16')
-    if not rec['contiguous_equals_paged']:
-        faults.append('contiguous streams differ from paged')
+    logits = rec['paged_logits']
+    if (not logits['first_tokens_same']
+            or logits['logits_rel_l2_max'] > LOGIT_RTOL
+            or logits['teacher_forced_agreement'] < INT8_AGREE_MIN
+            or any(p['bf16_top2_margin'] >= p['max_abs_logit_diff']
+                   for p in logits['parted'])):
+        faults.append('paged (K3) logits off contiguous')
     solo = rec['admit_many_vs_solo']
     if not (solo['firsts_same'] and solo['kv_allclose']
             and solo['bookkeeping_same']):
         faults.append('admit_many differs from solo admits')
     if not total['flash_fwd']:
         faults.append('K1 never launched on the serve_modes path')
+    if not total['paged_attn']:
+        faults.append('K3 never launched on the serve_modes path')
     if faults:
         raise RuntimeError(f'serve_modes: {faults}')
 
@@ -2448,9 +2620,12 @@ def phase_serve_moe(ctx) -> None:
                 or not all(0 <= t < cfg.vocab_size for t in toks):
             raise RuntimeError(f'bad reply {i}: {status} {reply}')
     want_launches = {'flash_fwd': MOE_MONOLITHIC * layers, 'flash_bwd': 0}
-    if launches != want_launches:
+    if _flash(launches) != want_launches:
         faults.append(f'the traffic launched {launches}, the prefills '
                       f'predict {want_launches}')
+    if not launches['paged_attn'] or launches['paged_attn'] % layers:
+        faults.append(f'K3 did not run once per layer of each decode '
+                      f'dispatch: {launches}')
     if not stats.get('prefix_hit_tokens'):
         faults.append('no prefix-cache hit')
     ctx['moe_serve_launches'] = launches
@@ -2654,7 +2829,7 @@ def phase_train_moe(ctx) -> None:
         if (r['loss'] != named['full']['loss']
                 or abs(r['grad_norm'] - named['full']['grad_norm'])
                 > GRAD_NORM_RTOL * named['full']['grad_norm']
-                or r['launches'] != one):
+                or _flash(r['launches']) != one):
             faults.append(f'remat {policy} off full: {named}')
     ctx['moe_train_launches'] = {
         k: n + sum(r['launches'][k] for r in named.values())
@@ -2785,7 +2960,7 @@ def phase_train_mesh_moe(ctx) -> None:
           'dropped_frac_first_forward': ref['dropped'][:layers],
           'peak_mem_gb': ref['peak_mem_gb'],
           'ms_per_step': ref['ms_per_step'], 'card': ctx['smi']})
-    if launches != mesh_launches('one', 0, layers, 'full'):
+    if _flash(launches) != mesh_launches('one', 0, layers, 'full'):
         faults.append(f'one device launched {launches}')
     for name, _ in MOE_MESH_RUNS:
         recs = [r[name] for r in ranks]
@@ -2838,7 +3013,7 @@ def phase_train_mesh_moe(ctx) -> None:
                 phase_launches[k] += n
         if (max(loss_rel) > GATE_LOSS_RTOL or max(norm_rel) > GATE_GRAD_RTOL
                 or max(got['update_rel_l2'].values()) > MESH_UPDATE_RTOL
-                or [r['launches'] for r in recs] != want
+                or [_flash(r['launches']) for r in recs] != want
                 or not rec['dropped_equal_across_ranks']
                 or flips > rec['router_flips_max']
                 or any(r['losses'] != got['losses'] for r in recs)):
@@ -3338,7 +3513,7 @@ def phase_launch(ctx) -> None:
                    'seconds_per_step': summary.get('seconds_per_step'),
                    **split, 'card': ctx['smi']}
             emit(out)
-            if (final != 'SUCCEEDED' or out['launches'] != want
+            if (final != 'SUCCEEDED' or _flash(out['launches']) != want
                     or any(split[k] < 0 for k in LAUNCH_SPLIT)):
                 faults.append(f'{part}: {out} (want launches {want}); '
                               f'log tail {log[-2000:]}')
@@ -3734,7 +3909,7 @@ def phase_service(ctx) -> None:
         k1[url] = {'launches': launches[url], 'want': want,
                    'requests': st['requests'],
                    'prefix_hits': st.get('prefix_hits', 0)}
-        if launches[url] != want:
+        if _flash(launches[url]) != want:
             faults.append(f'K1 on {url}: {launches[url]}, want {want} '
                           f'({cfg.num_layers} x (1 warm-up + '
                           f'{st["requests"]} requests - '
@@ -3809,7 +3984,7 @@ def phase_bench(ctx) -> None:
     if (missing or not rec['value'] > 0 or rec['vs_baseline'] is not None
             or not 0 < (rec['mfu_pct'] or 0) <= 100
             or not math.isfinite(rec['train_loss'])
-            or launches['train'] != want):
+            or _flash(launches['train']) != want):
         faults.append(f'train: missing {missing}, launches '
                       f'{launches["train"]} (want {want}), {rec}')
     gc.collect()
@@ -3825,7 +4000,7 @@ def phase_bench(ctx) -> None:
     missing = [f for f in BENCH_DECODE_FIELDS if f not in rec]
     if (missing or not rec['decode_tokens_per_sec_per_chip'] > 0
             or not rec['decode_ttft_ms'] > 0
-            or launches['decode'] != want):
+            or _flash(launches['decode']) != want):
         faults.append(f'decode: missing {missing}, launches '
                       f'{launches["decode"]} (want {want}), {rec}')
     ctx['bench_launches'] = {k: launches['train'][k] + launches['decode'][k]
@@ -3904,7 +4079,8 @@ def _one_source(sources):
 
 def kernels_line(ctx):
     """K1 timed at the serve path's largest prefill (1536, llama3-8b
-    heads), K2 at the train shape; launches summed over the serve,
+    heads), K2 at the train shape, K3 at the conv cell's verify step;
+    launches summed over the serve,
     serve_modes, train, train_mesh (the contract run and both ranks'
     runs on every mesh), serve_moe, train_moe, train_mesh_moe (the
     one-device run and both ranks' runs), launch (the cold and warm
@@ -3916,7 +4092,8 @@ def kernels_line(ctx):
     fwd = ctx['flash_timing'][(1, 1536, HQ, True)]
     bwd = ctx['flash_bwd_timing']
     by_phase = {'serve': {'flash_fwd': ctx['flash_launches'],
-                          'flash_bwd': 0},
+                          'flash_bwd': 0,
+                          'paged_attn': ctx['serve_paged_launches']},
                 'serve_modes': ctx['modes_launches'],
                 'train': ctx['train_launches'],
                 'train_mesh': ctx['mesh_launches'],
@@ -3928,7 +4105,8 @@ def kernels_line(ctx):
                 'bench': ctx['bench_launches']}
 
     def launches(name):
-        return {phase: n[name] for phase, n in by_phase.items()}
+        return {phase: n.get(name, 0) for phase, n in by_phase.items()}
+    paged = ctx['paged_timing'][5]
     return [{
         'name': 'flash_fwd', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
@@ -3951,6 +4129,17 @@ def kernels_line(ctx):
         'bound_ms': bwd['bound_ms'], 'bound_by': bwd['bound_by'],
         'library_ms': bwd['library_ms'],
         'ms_source': _one_source(bwd['ms_sources']),
+    }, {
+        'name': 'paged_attn', 'route': 'cuda',
+        'source': 'skypilot_tpu_torch/csrc/paged_attn.cu',
+        'replaces': None,  # the JAX engine's plain jnp attention
+        'launches': sum(launches('paged_attn').values()),
+        'launches_by_phase': launches('paged_attn'),
+        'head_rel_err': paged['head_rel_err'],
+        'ms': paged['kernel_ms'], 'plain_ms': paged['plain_ms'],
+        'bound_ms': paged['bound_ms'], 'bound_by': paged['bound_by'],
+        'library_ms': None,  # no single PyTorch call reads a paged pool
+        'ms_source': _one_source(paged['ms_sources']),
     }]
 
 

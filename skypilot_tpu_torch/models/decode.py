@@ -19,9 +19,13 @@ PyTorch on one device.
     ``lengths``; prompts are padded to a bucket (``prefill_bucket``).
   - **monolithic prefill** (``prefill``, ``admit`` and the batched
     ``admit_many``) runs attention through the hand-written CUDA flash
-    kernel on the card (``ops/attention.py``); the decode, verify and
-    chunk paths attend over the gathered pool rows in plain tensor code,
-    as the JAX engine does with ``einsum``.
+    kernel K1 on the card (``ops/attention.py``); the decode and verify
+    steps over a paged bf16 pool attend through the hand-written paged
+    kernel K3, which reads the pool in place through the block tables up
+    to each slot's length (its plain version, the gather below, on the
+    CPU); int8 pools, the contiguous layout and prefill chunks attend
+    over gathered pool rows in plain tensor code, as the JAX engine does
+    with ``einsum``.
   - **models**: the block math is the model's (``model=``): Llama's, or
     a ``MixtralModel``'s, whose MoE routes each dispatch's flattened
     [B, S] rows together (bucket padding and parked slots included), as
@@ -60,9 +64,6 @@ from skypilot_tpu_torch.utils import metrics as metrics_lib
 from skypilot_tpu_torch.utils import timeline
 from skypilot_tpu_torch.utils.device import DeviceLike, resolve_device
 
-_NEG_INF = -1e30
-
-
 DECODE_KINDS = ('step', 'step_verify')
 PREFILL_KINDS = ('prefill', 'admit', 'admit_many', 'prefill_chunk',
                  'prefill_chunk_final')
@@ -81,7 +82,8 @@ class _Dispatch:
     start stamp, ``t_host`` that of :meth:`StepProfiler.note_variant`
     (the inputs are on the device; the step's host time starts there)."""
     __slots__ = ('kind', 'variant', 'start', 'seq', 'end', 'end_seq',
-                 'attn', 'phases', 'after', 't_enq', 't_host', 't_done')
+                 'attn', 'pool_attn', 'phases', 'after', 't_enq', 't_host',
+                 't_done')
 
     def __init__(self, kind, phases, after):
         self.kind = kind
@@ -91,6 +93,9 @@ class _Dispatch:
         self.end = None
         self.end_seq = 0
         self.attn: Optional[List[tuple]] = None
+        # (K3 launches, the KV blocks they were sized to read per launch:
+        # a host tensor, filled behind the dispatch's own work).
+        self.pool_attn: Optional[tuple] = None
         self.phases = phases
         self.after = after
         self.t_enq = 0.0
@@ -116,7 +121,7 @@ class StepProfiler:
     **Device spans.** Each dispatch (:meth:`dispatch`) stamps the
     current stream before the first operation it enqueues and after the
     last; inside a decode dispatch each layer's attention over the KV
-    pool, from the gather through P·V, gets a pair of its own
+    pool (K3, or the gather through P·V) gets a pair of its own
     (:meth:`attn_begin` / :meth:`attn_end`) on one decode dispatch in
     ATTN_EVERY, since 2 x layers event records on every step showed in
     the host's enqueue time (PERF.md). On the card a stamp is a
@@ -205,14 +210,27 @@ class StepProfiler:
             buckets=device_buckets)
         self.decode_attn_device_ms = metrics_lib.histogram(
             'skytpu_engine_decode_attn_device_ms',
-            'device time of attention over the KV pool (gather to P.V) '
-            'per decode dispatch, summed over layers',
+            'device time of attention over the KV pool (K3, or the '
+            'gather to P.V) per decode dispatch, summed over layers',
             buckets=device_buckets)
         self.prefill_device_ms = metrics_lib.histogram(
             'skytpu_engine_prefill_device_ms',
             'device time of each prefill dispatch (prefill, admit, '
             'admit_many, prefill_chunk, prefill_chunk_final)',
             buckets=device_buckets)
+        # Attention over the paged pool (K3 on the card, its plain version
+        # on the CPU): calls, one per layer of each decode dispatch, and
+        # the KV blocks they were sized to read. Blocks / (launches x
+        # batch slots x max_blocks) is the share of the whole block table
+        # a step reads.
+        self.pool_attn_launches = metrics_lib.counter(
+            'skytpu_engine_pool_attn_launches_total',
+            'paged-pool attention launches of decode dispatches (one per '
+            'layer)')
+        self.pool_attn_kv_blocks = metrics_lib.counter(
+            'skytpu_engine_pool_attn_kv_blocks_total',
+            'KV blocks those launches were sized to read: per launch, '
+            'min(ceil((length + T) / block), max_blocks) summed over slots')
         self.device_gap_ms = {
             cause: metrics_lib.counter(
                 'skytpu_engine_device_gap_ms_total',
@@ -504,6 +522,25 @@ class StepProfiler:
     def attn_end(self, begin) -> None:
         self._open.attn.append((begin, self._stamp()))
 
+    def note_pool_attn(self, launches: int, lengths: torch.Tensor, t: int,
+                       block: int, max_blocks: int) -> None:
+        """The open decode dispatch attends over the paged pool in
+        ``launches`` calls, each sized to read min(ceil((lengths + t) /
+        block), max_blocks) blocks of every slot. The count is summed on
+        the device and, on the card, copied to pinned host memory behind
+        the dispatch's work: nothing here waits; :meth:`resolve` reads
+        it once the dispatch has finished."""
+        rec = self._open
+        if rec is None:
+            return
+        blocks = torch.clamp((lengths + (t + block - 1)) // block,
+                             max=max_blocks).sum()
+        if blocks.is_cuda:
+            host = torch.empty((), dtype=blocks.dtype, pin_memory=True)
+            host.copy_(blocks, non_blocking=True)
+            blocks = host
+        rec.pool_attn = (launches, blocks)
+
     def phase(self, name: str) -> None:
         """The scheduler thread moved to ``name`` (one of GAP_CAUSES)."""
         self._phases.append((time.perf_counter(), name))
@@ -635,6 +672,10 @@ class StepProfiler:
             for a, b in rec.attn or ():
                 self._events.extend((a, b))
         self._last_end = (rec.end, rec.end_seq)
+        if rec.pool_attn is not None:
+            launches, blocks = rec.pool_attn
+            self.pool_attn_launches.inc(launches)
+            self.pool_attn_kv_blocks.inc(launches * blocks.item())
         if rec.kind in DECODE_KINDS:
             self.step_device_ms.observe(device_ms)
             if layers is not None:
@@ -847,6 +888,10 @@ class DecodeEngine:
                 'bf16')
         self.kv_dtype = kv_dtype
         self.quantized = kv_dtype == 'int8'
+        # Decode and verify steps over a paged bf16 pool attend through K3
+        # (ops/attention.py paged_attention); int8 pools and the
+        # contiguous layout gather their rows.
+        self._pool_kernel = self.paged and not self.quantized
         # Slots driven without an explicit table (tests, warmup) get a
         # full-capacity assignment on first touch, cached so the same
         # slot always maps the same ids.
@@ -1184,25 +1229,18 @@ class DecodeEngine:
         """One admission's sampling setting as a device [1] tensor."""
         return torch.full((1,), value, dtype=dtype, device=self.device)
 
-    def _attend_pool(self, q: torch.Tensor, k_rows: torch.Tensor,
-                     v_rows: torch.Tensor, valid: torch.Tensor
-                     ) -> torch.Tensor:
-        """Grouped-query attention of q [N, T, hq, d] over gathered pool
-        rows [N, kvh, M, d] with mask ``valid`` [N, T, M]: f32 scores,
-        -1e30 masking, P cast to the model dtype before P.V (the JAX
-        engine's bf16 x bf16 -> f32 einsums). Returns [N, T, hq, d]."""
-        c = self.config
-        n, t = q.shape[:2]
-        grp = c.num_heads // c.num_kv_heads
-        qg = q.reshape(n, t, c.num_kv_heads, grp, c.head_dim).float()
-        s = torch.einsum('ntkgd,nkmd->ntkgm', qg, k_rows.float())
-        s = s * (c.head_dim ** -0.5)
-        s = torch.where(valid[:, :, None, None, :], s,
-                        torch.full_like(s, _NEG_INF))
-        p = torch.softmax(s, dim=-1)
-        attn = torch.einsum('ntkgm,nkmd->ntkgd', p.to(c.dtype).float(),
-                            v_rows.float())
-        return attn.reshape(n, t, c.num_heads, c.head_dim).to(c.dtype)
+    def _attend_slots(self, state: DecodeState, i: int, q: torch.Tensor,
+                      valid: Optional[torch.Tensor]) -> torch.Tensor:
+        """Layer ``i``'s attention of every slot's queries q [B, T, hq,
+        d] over its KV: K3 through the block tables (paged bf16, where
+        query row t sees rows 0 .. lengths + t), else the gathered rows
+        under ``valid`` [B, T, M]."""
+        if self._pool_kernel:
+            return attention_ops.paged_attention(
+                q, state.k[i], state.v[i], state.block_tables,
+                state.lengths)
+        k_layer, v_layer = self._batch_rows(state, i)
+        return attention_ops.attend_rows(q, k_layer, v_layer, valid)
 
     # -- prefill ------------------------------------------------------------
     @_device_span('prefill')
@@ -1340,7 +1378,8 @@ class DecodeEngine:
             q, k, v = model._qkv(lp, x, self._cos, self._sin, positions)
             self._write_kv(state, i, blk, row, k[0], v[0])
             k_slot, v_slot = self._slot_rows(state, i, slot, table)
-            attn = self._attend_pool(q, k_slot[None], v_slot[None], valid)
+            attn = attention_ops.attend_rows(q, k_slot[None], v_slot[None],
+                                             valid)
             x = x + model._attn_out(lp, attn)
             x = x + model._mlp_delta(lp, x)[0]
         return x
@@ -1580,7 +1619,9 @@ class DecodeEngine:
         positions = state.lengths[:, None]  # [B, 1]
         x = params['embed'][state.last_tokens][:, None].to(c.dtype)
         # New key written at index ``lengths`` -> valid keys <= lengths.
-        valid = (self._kv_pos[None] <= state.lengths[:, None])[:, None]
+        valid = None
+        if not self._pool_kernel:
+            valid = (self._kv_pos[None] <= state.lengths[:, None])[:, None]
         # INACTIVE slots park their (garbage) write at the LAST row, not
         # row ``lengths`` (= 0): a slot mid-chunked-prefill is inactive
         # but already holds real rows from 0 up. The last row is never
@@ -1595,13 +1636,15 @@ class DecodeEngine:
         else:
             blk, row = self._slot_ids, write_pos
         prof = self.profiler
+        if prof is not None and self._pool_kernel:
+            prof.note_pool_attn(c.num_layers, state.lengths, 1,
+                                self.kv_block, self.max_blocks)
         for i in range(c.num_layers):
             lp = model.layer_params(params, i)
             q, k, v = model._qkv(lp, x, self._cos, self._sin, positions)
             self._write_kv(state, i, blk, row, k[:, 0], v[:, 0])
             span = prof.attn_begin() if prof is not None else None
-            k_layer, v_layer = self._batch_rows(state, i)
-            attn = self._attend_pool(q, k_layer, v_layer, valid)
+            attn = self._attend_slots(state, i, q, valid)
             if span is not None:
                 prof.attn_end(span)
             x = x + model._attn_out(lp, attn)
@@ -1666,7 +1709,9 @@ class DecodeEngine:
         positions = (state.lengths[:, None]
                      + torch.arange(t, device=self.device)[None])  # [B, T]
         x = params['embed'][inputs].to(c.dtype)                 # [B, T, e]
-        valid = self._kv_pos[None, None, :] <= positions[:, :, None]
+        valid = None
+        if not self._pool_kernel:
+            valid = self._kv_pos[None, None, :] <= positions[:, :, None]
         # Rows past capacity (and every row of an inactive slot) must not
         # land anywhere real. JAX gives them an out-of-range index and
         # scatters with mode='drop'; torch has no dropping scatter, and a
@@ -1686,13 +1731,15 @@ class DecodeEngine:
             blk = self._slot_ids[:, None].expand(-1, t)
             row = torch.where(ok, wp, torch.full_like(wp, self.max_len))
         prof = self.profiler
+        if prof is not None and self._pool_kernel:
+            prof.note_pool_attn(c.num_layers, state.lengths, t,
+                                self.kv_block, self.max_blocks)
         for i in range(c.num_layers):
             lp = model.layer_params(params, i)
             q, k, v = model._qkv(lp, x, self._cos, self._sin, positions)
             self._write_kv(state, i, blk, row, k, v)
             span = prof.attn_begin() if prof is not None else None
-            k_layer, v_layer = self._batch_rows(state, i)
-            attn = self._attend_pool(q, k_layer, v_layer, valid)
+            attn = self._attend_slots(state, i, q, valid)
             if span is not None:
                 prof.attn_end(span)
             x = x + model._attn_out(lp, attn)

@@ -17,6 +17,11 @@ Dispatch (``attention``):
   ``force_impl`` ('flash' | 'blockwise' | 'reference') overrides either;
   'flash' on CPU tensors runs the same custom ops and autograd function
   over the kernels' plain versions.
+
+The decode engine's attention over its paged KV pool (``paged_attention``)
+launches the hand-written kernel K3 (``csrc/paged_attn.cu``) on CUDA
+tensors and takes its plain version, the engine's gather and f32 einsums
+(``paged_attention_reference``, ``attend_rows``), on CPU tensors.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ _NEG_INF = -1e30
 # Kernel launch counts, by kernel name: each wrapper adds one where it
 # launches its kernel and nowhere else (a CPU tensor takes the plain
 # version and leaves the count alone).
-LAUNCHES: Dict[str, int] = {'flash_fwd': 0, 'flash_bwd': 0}
+LAUNCHES: Dict[str, int] = {'flash_fwd': 0, 'flash_bwd': 0,
+                            'paged_attn': 0}
 
 
 def reset_launch_counts() -> None:
@@ -369,6 +375,151 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f'flash_bwd kernel launch failed: {msg} ({err})')
     LAUNCHES['flash_bwd'] += 1
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention: CUDA kernel K3 and its plain version.
+# ---------------------------------------------------------------------------
+
+# Query rows (hq / hkv x t) one K3 launch takes; a longer t is launched in
+# parts of that many rows.
+PAGED_MAX_ROWS = 32
+PAGED_HEAD_DIM = 128
+
+
+def attend_rows(q: torch.Tensor, k_rows: torch.Tensor, v_rows: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """Grouped-query attention of q [N, T, hq, d] over gathered KV rows
+    [N, kvh, M, d] with mask ``valid`` [N, T, M]: f32 scores, -1e30
+    masking, P cast to q's dtype before P.V (the JAX engine's bf16 x bf16
+    -> f32 einsums). Returns [N, T, hq, d] in q's dtype."""
+    n, t, hq, d = q.shape
+    kvh = k_rows.shape[1]
+    qg = q.reshape(n, t, kvh, hq // kvh, d).float()
+    s = torch.einsum('ntkgd,nkmd->ntkgm', qg, k_rows.float())
+    s = s * (d ** -0.5)
+    s = torch.where(valid[:, :, None, None, :], s,
+                    torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    attn = torch.einsum('ntkgm,nkmd->ntkgd', p.to(q.dtype).float(),
+                        v_rows.float())
+    return attn.reshape(n, t, hq, d).to(q.dtype)
+
+
+def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, block_tables: torch.Tensor,
+                              lengths: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: every slot's whole table gathered from the
+    pools [NB, kvh, BS, d] through ``block_tables`` [B, max_blocks] into
+    [B, kvh, max_blocks * BS, d], query row t of slot b seeing rows 0 ..
+    lengths[b] + t, then ``attend_rows``. q is [B, T, hq, d]."""
+    def gather(pool):
+        g = pool[block_tables].permute(0, 2, 1, 3, 4)  # [B,kvh,nb,BS,d]
+        return g.reshape(g.shape[0], g.shape[1], -1, g.shape[4])
+
+    k_rows, v_rows = gather(k_pool), gather(v_pool)
+    pos = lengths[:, None] + torch.arange(q.shape[1], device=q.device)[None]
+    valid = (torch.arange(k_rows.shape[2], device=q.device)[None, None, :]
+             <= pos[:, :, None])
+    return attend_rows(q, k_rows, v_rows, valid)
+
+
+_paged_lib = None
+
+
+def bind_paged(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare K3's C interface on a loaded library, as ``bind_fwd``."""
+    fn = lib.skytpu_paged_attn_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.skytpu_paged_attn_split_keys.argtypes = []
+    lib.skytpu_paged_attn_split_keys.restype = ctypes.c_int
+    _bind_error_string(lib)
+    return lib
+
+
+def _paged_kernel():
+    global _paged_lib
+    if _paged_lib is None:
+        _paged_lib = bind_paged(_build.load('paged_attn'))
+    return _paged_lib
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_tables: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """Decode attention of q [B, T, hq, d] over one layer's paged KV pools
+    [NB, kvh, BS, d], read through ``block_tables`` [B, max_blocks]
+    (int64): query row t of slot b sees key positions 0 .. lengths[b] + t
+    (int64 [B]), capped at max_blocks * BS. Returns [B, T, hq, d].
+
+    CUDA tensors launch kernel K3 (``csrc/paged_attn.cu``: bf16, head_dim
+    128), which reads only the blocks up to each slot's last visible key;
+    CPU tensors take ``paged_attention_reference``. On the card, inputs
+    the kernel does not take raise."""
+    tensors = (q, k_pool, v_pool, block_tables, lengths)
+    if not all(t.is_cuda for t in tensors):
+        if any(t.is_cuda for t in tensors):
+            raise ValueError('paged_attention: all inputs must share a '
+                             'device')
+        return paged_attention_reference(q, k_pool, v_pool, block_tables,
+                                          lengths)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError('paged_attention: all inputs must share a device')
+    _check_flash_operand('q', q)
+    b, t, hq, d = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f'pools must be [NB, kvh, BS, d] alike, got '
+                         f'{tuple(k_pool.shape)}/{tuple(v_pool.shape)}')
+    _, hkv, bs, d_pool = k_pool.shape
+    for name, pool in (('k_pool', k_pool), ('v_pool', v_pool)):
+        if pool.dtype != torch.bfloat16 or not pool.is_contiguous():
+            raise ValueError(f'{name} must be a contiguous bf16 pool, got '
+                             f'{pool.dtype}')
+    if d != PAGED_HEAD_DIM or d_pool != d:
+        raise ValueError(f'paged kernel head_dim must be {PAGED_HEAD_DIM} '
+                         f'in q and the pools, got q {d}, pool {d_pool}')
+    if hq % hkv or hq // hkv > PAGED_MAX_ROWS:
+        raise ValueError(f'q heads {hq} must be a multiple of kv heads '
+                         f'{hkv}, at most {PAGED_MAX_ROWS} per kv head')
+    if (block_tables.dtype != torch.long or block_tables.dim() != 2
+            or block_tables.shape[0] != b or block_tables.stride(1) != 1):
+        raise ValueError(f'block_tables must be int64 [{b}, max_blocks] '
+                         f'with unit column stride, got '
+                         f'{tuple(block_tables.shape)} {block_tables.dtype}')
+    if (lengths.dtype != torch.long or tuple(lengths.shape) != (b,)
+            or not lengths.is_contiguous()):
+        raise ValueError(f'lengths must be a contiguous int64 [{b}], got '
+                         f'{tuple(lengths.shape)} {lengths.dtype}')
+    max_blocks = block_tables.shape[1]
+    grp = hq // hkv
+    t_part = max(1, PAGED_MAX_ROWS // grp)
+    rows = min(t, t_part) * grp
+    lib = _paged_kernel()
+    n_splits = -(-max_blocks * bs // lib.skytpu_paged_attn_split_keys())
+    out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    o_part = torch.empty((b * hkv, n_splits, rows, d) if n_splits > 1
+                         else (0,), dtype=torch.float32, device=q.device)
+    ml_part = torch.empty((b * hkv, n_splits, rows, 2) if n_splits > 1
+                          else (0,), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    for t0 in range(0, t, t_part):
+        qs, os_ = q[:, t0:t0 + t_part], out[:, t0:t0 + t_part]
+        err = lib.skytpu_paged_attn_bf16(
+            qs.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), os_.data_ptr(),
+            o_part.data_ptr(), ml_part.data_ptr(), b, qs.shape[1], t0, hq,
+            hkv, d, bs, max_blocks, *qs.stride()[:3], *os_.stride()[:3],
+            block_tables.stride(0), float(d ** -0.5), q.device.index or 0,
+            stream)
+        if err != 0:
+            msg = lib.skytpu_cuda_error_string(err).decode()
+            raise RuntimeError(f'paged_attn kernel launch failed: {msg} '
+                               f'({err})')
+    LAUNCHES['paged_attn'] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
